@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc and load them through ctypes.
 
 The sources are ``csrc/*.cu`` (plain C interface, no PyTorch headers, so a
-build takes seconds).  The shared library goes to ``_build/`` inside the
-package, named by a hash of the sources, and is built at first use.  A
-failed build raises with nvcc's stderr.
+build takes seconds).  Each source compiles in an nvcc process of its own,
+all started together, and one more links the objects into a shared
+library in ``_build/`` inside the package, named by a hash of the
+sources, at first use.  A failed build raises with nvcc's stderr.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per kernel
 launch, keyed by kernel name), so a run can show that its main path went
@@ -14,11 +15,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "rle2_expand": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P],
     # w, hi2, used, words, B, E, nwords, stream
     "pack_words": [_P, _P, _P, _P, _I32, _I64, _I64, _P],
+    # mask, payload, base, out, n_tiles, tile, stream
+    "compact_stream": [_P, _P, _P, _P, _I64, _I32, _P],
 }
 
 
@@ -59,6 +62,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; wait for all, then raise with the
+    stderr of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate()[1] for p in procs]
+    for cmd, p, err in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}"
+            )
+
+
 def build() -> Path:
     """Compile the kernels (if this source hash is not built yet) and
     return the shared library's path."""
@@ -70,32 +87,43 @@ def build() -> Path:
     so = BUILD_DIR / f"libbanzai_kernels-{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", str(tmp),
-        *[str(p) for p in srcs if p.suffix == ".cu"],
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, so)
+    work = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    cus = [p for p in srcs if p.suffix == ".cu"]
+    objs = [work / f"{p.stem}.o" for p in cus]
+    try:
+        _run_all([
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-c", "-o", str(o), str(p)]
+            for p, o in zip(cus, objs)
+        ])
+        tmp = work / so.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 
-@functools.cache
+_LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library, built first if needed (once, whichever
+    thread asks first)."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
 
 
 def launch(name: str, *args) -> None:

@@ -9,7 +9,7 @@ assembly) run batch-wide.
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -25,21 +25,30 @@ from .ops.stream_kernels import as_int32_bits, pack_words, rle2_expand
 ROW_EXTRA = 260
 
 
+def nvtx_range(name: str, device: torch.device):
+    """An NVTX range named ``name`` on a CUDA device (what a profiler's
+    timeline shows for the enclosed host step); nothing on the CPU."""
+    return torch.cuda.nvtx.range(name) if device.type == "cuda" else nullcontext()
+
+
 @contextmanager
 def stage(stage_ms: dict | None, name: str, device: torch.device):
-    """Add the wall time of the enclosed stage to ``stage_ms[name]`` (ms),
-    synchronising the device before and after.  With ``stage_ms`` None
-    nothing is timed and nothing waits."""
-    if stage_ms is None:
+    """Open an NVTX range for the enclosed stage, and add its wall time to
+    ``stage_ms[name]`` (ms), synchronising the device before and after.
+    With ``stage_ms`` None nothing is timed and nothing waits."""
+    with nvtx_range(name, device):
+        if stage_ms is None:
+            yield
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
         yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stage_ms[name] = stage_ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stage_ms[name] = (
+            stage_ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        )
 
 
 def unpack_rows(rows: torch.Tensor):

@@ -7,6 +7,7 @@ This file imports no JAX, so it runs on a machine that has none:
 """
 
 import bz2
+import io
 import random
 
 import numpy as np
@@ -17,6 +18,9 @@ import banzai_tpu_torch
 from banzai_tpu.encoder_host import compress as host_compress
 from banzai_tpu_torch import _build
 from banzai_tpu_torch.ops.bitpack import splice_entries
+from banzai_tpu_torch.ops.compact_kernel import (
+    compact_stream, compact_stream_plain,
+)
 from banzai_tpu_torch.ops.mtf_kernel import mtf_shuffle, mtf_shuffle_plain
 from banzai_tpu_torch.ops.rle2 import rle2_entries
 from banzai_tpu_torch.ops.stream_kernels import (
@@ -92,6 +96,23 @@ def test_pack_words_kernel_matches_plain(cuda, kind):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n,tile,density", [
+    (512, 512, 0.0), (4096, 512, 0.05), (65536, 512, 0.5),
+    (1 << 20, 512, 1.0), (4096, 32, 0.3), (8192, 1024, 0.7),
+])
+def test_compact_stream_kernel_matches_plain(cuda, n, tile, density):
+    rng = np.random.default_rng(n + tile)
+    mask = torch.from_numpy(rng.random(n) < density).to(cuda)
+    pay = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)).to(cuda)
+    before = _build.LAUNCHES["compact_stream"]
+    got, count = compact_stream(mask, pay, tile)
+    assert _build.LAUNCHES["compact_stream"] == before + 1
+    want, want_count = compact_stream_plain(mask, pay, tile)
+    assert int(count) == int(want_count) == int(mask.sum())
+    assert torch.equal(got, want)
+
+
 def test_compress_on_card_matches_host(cuda):
     rng = random.Random(3)
     data = rng.randbytes(150_000) + b"abcde" * 20_000 + bytes(50_000)
@@ -103,3 +124,32 @@ def test_compress_on_card_matches_host(cuda):
     assert stats.device_blocks >= 2
     assert all(_build.LAUNCHES[k] > 0
                for k in ("mtf_shuffle", "rle2_expand", "pack_words"))
+
+
+def test_encode_and_hybrid_on_card_match_host(cuda):
+    rng = random.Random(4)
+    data = rng.randbytes(250_000) + b"xyz" * 30_000
+    want = host_compress(data, 1, jobs=1)
+    w = io.BytesIO()
+    n = banzai_tpu_torch.encode(io.BytesIO(data), w, 1, "cuda",
+                                span_bytes=70_000)
+    assert n == len(w.getvalue()) and w.getvalue() == want
+    stats = EncodeStats()
+    assert banzai_tpu_torch.compress(data, 1, "cuda", stats,
+                                     hybrid_jobs=2) == want
+    assert stats.host_hybrid >= 1
+
+
+def test_repeated_compress_reuses_device_memory(cuda):
+    # One compute stream per device for the process: the caching
+    # allocator reuses a block only on the stream it was allocated on.
+    from banzai_tpu_torch import pipeline
+
+    data = random.Random(5).randbytes(300_000)
+    banzai_tpu_torch.compress(data, 1, "cuda")
+    reserved = torch.cuda.memory_reserved()
+    streams = pipeline._streams(torch.device("cuda", 0))
+    for _ in range(3):
+        banzai_tpu_torch.compress(data, 1, "cuda")
+    assert pipeline._streams(torch.device("cuda", 0)) == streams
+    assert torch.cuda.memory_reserved() < 2 * reserved

@@ -40,12 +40,11 @@ def test_encode_batch_rows_matches_jax():
         np.frombuffer(b"abcde" * 1000, np.uint8),
     ]
     rows, _ = stage_rows(outputs, N, 2)
-    assert rows.shape == (2, N + 260)
-    got = encode_batch_rows(torch.from_numpy(rows), nseg=nseg,
-                            nwords=nwords, chunk=_CHUNK)
+    assert rows.shape == (2, N + 260) and rows.dtype == torch.uint8
+    got = encode_batch_rows(rows, nseg=nseg, nwords=nwords, chunk=_CHUNK)
     f = jax.jit(partial(dp.encode_batch_rows, nseg=nseg, nwords=nwords,
                         chunk=_CHUNK, use_pallas=False))
-    want = f(jnp.asarray(rows))
+    want = f(jnp.asarray(rows.numpy()))
     names = ("words", "nbits", "ptr", "plan_bits", "split", "out_len")
     for name, g, w in zip(names, got, want):
         g = g.numpy()
