@@ -6,8 +6,13 @@ CUDA kernels (``csrc/``) for the MTF shuffle, the RLE2 expansion and the
 word assembly.  Host RLE1, staging, the device and the drain overlap on
 threads of their own (``pipeline.compress_blocks_iter``).  The host side
 (RLE1 block splitting, CRCs, container framing, the host encoder for tiny
-blocks) is reused from ``banzai_tpu``'s JAX-free modules.  Output is
-byte-identical to ``banzai_tpu.encoder_host.compress``.
+blocks) lives in this package too, as copies of ``banzai_tpu``'s host
+modules: the port imports nothing of the JAX package.  Output is
+byte-identical to the host encoder ``encoder_host.compress``.
+
+Importing the package imports no torch: ``pipeline`` is loaded by the
+first encode (or the first use of ``EncodeStats``), so spawned host
+workers, which unpickle ``encoder_host`` functions, stay torch-free.
 
 Public API:
 
@@ -21,13 +26,22 @@ Public API:
 
 from __future__ import annotations
 
-from typing import BinaryIO
+from typing import TYPE_CHECKING, BinaryIO
 
-from .pipeline import EncodeStats, compress as _compress
+if TYPE_CHECKING:
+    from .pipeline import EncodeStats
 
 __version__ = "0.1.0"
 
 __all__ = ["EncodeStats", "compress", "encode", "encode_file"]
+
+
+def __getattr__(name: str):
+    if name == "EncodeStats":
+        from .pipeline import EncodeStats
+
+        return EncodeStats
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _check_level(level: int) -> None:
@@ -49,6 +63,8 @@ def compress(
     and host timings (and the stage times, if its ``stage_ms`` is a dict).
     ``batch`` and ``hybrid_jobs`` are as in
     ``pipeline.compress_blocks_iter``."""
+    from .pipeline import compress as _compress
+
     _check_level(level)
     return _compress(data, level, device, stats, batch=batch,
                      hybrid_jobs=hybrid_jobs)
@@ -70,16 +86,15 @@ def encode(
     pipeline as soon as the span is split; the stream CRC and the raw
     tail are all that is carried from span to span.  Each finished block
     is written out at once.  When ``report`` (a
-    ``banzai_tpu.profiling.EncodeReport``) is given, per-block stats are
+    ``profiling.EncodeReport``) is given, per-block stats are
     appended to it as blocks are written.  The device is resolved before
     anything is read or written."""
-    from banzai_tpu.bitio import BitWriter
-    from banzai_tpu.container import write_stream_footer, write_stream_header
-    from banzai_tpu.crc32 import combine_stream_crc
-    from banzai_tpu.rle1 import split_blocks
-
     from ._device import resolve_device
+    from .bitio import BitWriter
+    from .container import write_stream_footer, write_stream_header
+    from .crc32 import combine_stream_crc
     from .pipeline import compress_blocks_iter
+    from .rle1 import split_blocks
 
     _check_level(level)
     dev = resolve_device(device)

@@ -6,9 +6,11 @@ all started together, and one more links the objects into a shared
 library in ``_build/`` inside the package, named by a hash of the
 sources, at first use.  A failed build raises with nvcc's stderr.
 
-Every kernel wrapper counts its launches in ``LAUNCHES`` (one per kernel
-launch, keyed by kernel name), so a run can show that its main path went
-through the kernels.
+Every kernel wrapper counts its launches in ``LAUNCHES``: one per call of
+an entry point, keyed by the entry's name, so a run can show that its main
+path went through the kernels.  An entry may run more than one
+``__global__`` kernel (``compact_stream`` runs three) and still counts
+one.
 """
 
 from __future__ import annotations
@@ -36,14 +38,14 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # name -> argtypes of the extern "C" entry point (each returns cudaError_t)
 _SIGNATURES = {
-    # syms, state0, out, err, C, K, debug, stream
-    "mtf_shuffle": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
+    # syms, state0, out, err, C, K, vec, debug, stream
+    "mtf_shuffle": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     # off, width, zp1, val, out_len, out, B, M, stream
     "rle2_expand": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P],
     # w, hi2, used, words, B, E, nwords, stream
     "pack_words": [_P, _P, _P, _P, _I32, _I64, _I64, _P],
-    # mask, payload, base, out, n_tiles, tile, stream
-    "compact_stream": [_P, _P, _P, _P, _I64, _I32, _P],
+    # mask, payload, counts, offs, out, n_tiles, tile, stream
+    "compact_stream": [_P, _P, _P, _P, _P, _I64, _I32, _P],
 }
 
 

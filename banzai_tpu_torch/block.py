@@ -62,10 +62,13 @@ def unpack_rows(rows: torch.Tensor):
 
 
 def encode_batch_rows(
-    rows: torch.Tensor, *, nseg: int, nwords: int, chunk: int,
+    rows: torch.Tensor, *, nseg: int, nwords: int, chunk: int | None = None,
     stage_ms: dict | None = None,
 ):
     """Encode every block of a packed uint8 [B, N + 260] row batch.
+
+    ``chunk`` is the MTF chunk length (default: ``ops.mtf.mtf_indices``'s
+    for the device); the output does not depend on it.
 
     Returns (words int32 [B, nwords] uint32 bit patterns, nbits [B],
     ptr [B], plan_bits [B], banzai split [B, 3, 258], out_len [B]), the

@@ -14,10 +14,11 @@ from __future__ import annotations
 import os
 import sys
 
-from banzai_tpu.cli import (
-    EXIT_INPUT_IO, EXIT_OK, EXIT_OUTPUT_IO, EXIT_USAGE, _InputIOError,
-    _TaggedReader,
-)
+# Exit codes of the reference's bnz (as ``banzai_tpu/cli.py``).
+EXIT_OK = 0
+EXIT_USAGE = 1
+EXIT_INPUT_IO = 2
+EXIT_OUTPUT_IO = 3
 
 _DEVICES = ("cuda", "cpu")
 
@@ -60,6 +61,25 @@ class Invocation:
         self.banzai_compat = False
         self.level: int | None = None
         self.device = "cuda"
+
+
+class _InputIOError(Exception):
+    """Read-side failure, tagged so it maps to exit 2 (input IO) instead
+    of the output-IO handler catching the same OSError type."""
+
+
+class _TaggedReader:
+    """Wrap the input stream so read errors are distinguishable from
+    write errors inside the shared encode() loop."""
+
+    def __init__(self, f):
+        self._f = f
+
+    def read(self, n: int = -1):
+        try:
+            return self._f.read(n)
+        except OSError as e:
+            raise _InputIOError(str(e)) from e
 
 
 def parse_args(argv: list[str]) -> Invocation | int:
@@ -202,7 +222,7 @@ def main(argv: list[str] | None = None) -> int:
 
     report = None
     if inv.verbose:
-        from banzai_tpu.profiling import EncodeReport
+        from .profiling import EncodeReport
 
         report = EncodeReport(level=inv.level)
 
@@ -223,7 +243,7 @@ def main(argv: list[str] | None = None) -> int:
         if inv.banzai_compat:
             # The quirk-exact reference model, byte-identical to the
             # reference banzai's stream.
-            from banzai_tpu.oracle import banzai_compress
+            from .oracle import banzai_compress
 
             writer.write(
                 banzai_compress(_TaggedReader(reader).read(), inv.level)

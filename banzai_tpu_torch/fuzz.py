@@ -2,9 +2,9 @@
 
 Counterpart of the repository's root ``fuzz.py``: deterministic random
 inputs (structured generations, and mutations of a corpus) are encoded
-with ``banzai_tpu_torch.compress`` on ``--device`` and must equal
-``banzai_tpu.encoder_host.compress`` byte for byte and decode with the
-standard library's ``bz2``.  A failing input is written to
+with ``banzai_tpu_torch.compress`` on ``--device`` and must equal the
+port's host encoder ``encoder_host.compress`` byte for byte and decode
+with the standard library's ``bz2``.  A failing input is written to
 ``fuzz_fail.bin`` in the working directory.
 
     python -m banzai_tpu_torch.fuzz [iterations] [--seed S]
@@ -106,7 +106,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     args = ap.parse_args(argv)
 
-    from banzai_tpu.encoder_host import compress as host_compress
+    from .encoder_host import compress as host_compress
 
     from . import compress
 

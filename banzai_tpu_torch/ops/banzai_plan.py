@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from banzai_tpu.constants import MAX_SYMS as S
+from ..constants import MAX_SYMS as S
 
 _BIG = 1e9
 # Banzai never uses more than 3 tables (its table count is keyed on the

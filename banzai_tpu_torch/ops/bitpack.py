@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from banzai_tpu.constants import (
+from ..constants import (
     CODEWORD_MAX_LEN, MAX_SYMS as S, MAX_TABLES as T, SEGMENT_WIDTH,
 )
 

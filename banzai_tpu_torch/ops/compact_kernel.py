@@ -51,7 +51,9 @@ def compact_stream(
 
     Returns (packed, count int64 []); lanes at or past ``count`` are 0.
     ``N`` must be a multiple of ``tile`` (a multiple of 32 up to 1024 on
-    the card: one CTA per tile).  Nothing waits for the device."""
+    the card: one CTA per tile).  On the card one launch runs the tile
+    counts, their scan and the placement (``csrc/compact_stream.cu``) on
+    the bool mask.  Nothing waits for the device."""
     _check(mask, payload, tile)
     dev = mask.device
     if dev.type == "cpu":
@@ -60,12 +62,18 @@ def compact_stream(
         raise ValueError(f"unsupported device {dev}")
     if tile % 32 or not 32 <= tile <= 1024:
         raise ValueError(f"tile {tile} is not a multiple of 32 in [32, 1024]")
-    m = (mask != 0).to(torch.int32)
+    m = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
+    if m.data_ptr() % 4:
+        m = m.clone()             # the kernel reads the mask as words
     pay = payload.to(torch.int32).contiguous()
-    n_tiles = m.shape[0] // tile
-    counts = m.reshape(n_tiles, tile).sum(dim=1)              # int64
-    base = torch.cumsum(counts, 0) - counts
-    out = torch.zeros(m.shape[0], dtype=torch.int32, device=dev)
+    n = m.shape[0]
+    n_tiles = n // tile
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if not n_tiles:
+        return out, torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    # offs[t]: kept lanes before tile t; offs[n_tiles]: the count.
+    offs = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        launch("compact_stream", m, pay, base, out, n_tiles, tile)
-    return out, counts.sum()
+        launch("compact_stream", m, pay, counts, offs, out, n_tiles, tile)
+    return out, offs[n_tiles]

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from banzai_tpu.constants import (
+from ..constants import (
     CODEWORD_MAX_LEN, MAX_SYMS as S, MAX_TABLES as T, SEGMENT_WIDTH,
 )
 

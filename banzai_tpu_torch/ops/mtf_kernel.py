@@ -2,7 +2,8 @@
 
 Counterpart of ``banzai_tpu/ops/mtf_pallas.py`` (``mtf_shuffle_pallas``).
 ``mtf_shuffle`` launches the CUDA kernel for a CUDA tensor and runs the
-plain PyTorch version, ``mtf_shuffle_plain``, for a CPU tensor.
+plain PyTorch version, ``mtf_shuffle_plain``, for a CPU tensor.  Symbols
+are byte values or -1 (pad); the state rows hold byte values.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ def _raise_on_error_bits(err: torch.Tensor) -> None:
     if bad:
         raise AssertionError(
             f"MTF kernel invariant violated (error bits {bad:#x}): "
-            "recency state is not a byte permutation"
+            "recency state is not a byte permutation (bit 0: a symbol "
+            "matched no slot, bit 1: more than one, bit 2: a state value "
+            "outside 0..255)"
         )
 
 
@@ -49,6 +52,8 @@ def mtf_shuffle_plain(
     col = torch.arange(S, device=syms.device, dtype=torch.int32)[None, :]
     out = torch.empty((C, K), dtype=torch.int32, device=syms.device)
     err = torch.zeros(C, dtype=torch.int32, device=syms.device)
+    if debug_checks:
+        err |= ((state0 < 0) | (state0 > 255)).any(dim=1).to(torch.int32) << 2
     for t in range(K):
         s = syms[:, t : t + 1]                                  # [C, 1]
         hit = state == s
@@ -90,8 +95,10 @@ def mtf_shuffle(
     out = torch.empty((C, K), dtype=torch.int32, device=syms.device)
     err = torch.zeros(C if debug_checks else 1, dtype=torch.int32,
                       device=syms.device)
+    # 16-byte copies of whole rows when every row starts 16-byte aligned.
+    vec = int(K % 4 == 0 and syms.data_ptr() % 16 == 0)
     with torch.cuda.device(syms.device):
-        launch("mtf_shuffle", syms, state0, out, err, C, K,
+        launch("mtf_shuffle", syms, state0, out, err, C, K, vec,
                int(debug_checks))
     if debug_checks:
         _raise_on_error_bits(err)

@@ -12,8 +12,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from banzai_tpu.bitio import BitWriter
-from banzai_tpu.container import write_block_header, write_sym_map
+from .bitio import BitWriter
+from .container import write_block_header, write_sym_map
 
 
 @dataclass

@@ -46,19 +46,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from banzai_tpu.bitio import BitWriter
-from banzai_tpu.constants import MAX_SYMS as S, SEGMENT_WIDTH, block_capacity
-from banzai_tpu.container import write_stream_footer, write_stream_header
-from banzai_tpu.crc32 import combine_stream_crc
-from banzai_tpu.encoder_host import TINY_BLOCK, block_plan, hybrid_block
-from banzai_tpu.huffman_host import banzai_wins, write_entropy
-from banzai_tpu.rle1 import iter_blocks
-
 from ._device import resolve_device
+from .bitio import BitWriter
+from .constants import MAX_SYMS as S, SEGMENT_WIDTH, block_capacity
+from .container import write_stream_footer, write_stream_header
+from .crc32 import combine_stream_crc
+from .encoder_host import TINY_BLOCK, block_plan, hybrid_block
+from .huffman_host import banzai_wins, write_entropy
+from .rle1 import iter_blocks
 from .block import ROW_EXTRA, encode_batch_rows, nvtx_range, stage
 from .payload import BlockPayload
 
-_CHUNK = 64           # MTF chunk length
+_CHUNK = 64           # row padding multiple (the JAX pipeline's MTF chunk)
 _DEFAULT_BATCH = 8    # blocks per device batch at level >= 5
 _STAGED = 2           # staged batches queued ahead of the device thread
 _INFLIGHT = 3         # fetched batches queued ahead of the drain
@@ -211,7 +210,7 @@ def _hybrid_pool(jobs: int):
     if _HYBRID_POOL is None or _HYBRID_POOL_JOBS != jobs:
         if _HYBRID_POOL is not None:
             _HYBRID_POOL.terminate()
-        from banzai_tpu.utils.pool import spawn_pool
+        from .utils.pool import spawn_pool
 
         _HYBRID_POOL = spawn_pool(jobs)
         if _HYBRID_POOL_JOBS == 0:           # first pool of this process
@@ -426,7 +425,7 @@ class _Scheduler:
         with self._step("dispatch"):
             words_d, nbits_d, ptrs_d, planb_d, splits_d, mlens_d = (
                 encode_batch_rows(rows, nseg=self.nseg, nwords=self.nwords,
-                                  chunk=_CHUNK, stage_ms=sm)
+                                  stage_ms=sm)
             )
         k = self._k_now()
         with stage(sm, "fetch", self.dev):

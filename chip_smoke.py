@@ -11,16 +11,24 @@ Phases, one line each or more:
 3. kernels: runs K1-K3 at the level-9, batch-8 shapes of the main path,
    on inputs the real pipeline makes from real blocks, checks each
    bitwise against its plain PyTorch version on the card, and times both
-   (CUDA events, median, in turns); K4 (stream compaction, on no path of
-   the encoder) runs on the batch's flattened MTF indices and on three
-   random masks at the same length, bitwise against its plain version;
+   (CUDA events, median, in turns); K1 runs at the main path's chunk
+   (``ops.mtf.CHUNK``) and again at chunk 64, the JAX pipeline's.  K4
+   (stream compaction, on no path of the encoder) runs on the batch's
+   flattened MTF indices and on three random masks at the same length,
+   bitwise against its plain version.  Beside each kernel: its bound
+   (bytes moved once at 3.35 TB/s, or its operations at 67 T/s, whichever
+   is larger), its share of that bound, and the time of the nearest
+   single PyTorch call (``library_ms``; none for K1), which the port
+   never calls.  Then the MTF stage's kernel time under torch.profiler
+   (the chunk states' kernels and K1, one ``mtf_indices`` call) at both
+   dispatch shapes, batches of 8 and 2;
 4. compress: ``banzai_tpu_torch.compress(data, 9, device="cuda")`` through
    the overlapped block scheduler on about 8.6 MB built from the seed and
-   the JAX package's source; the stream must equal the host encoder's
-   byte for byte, decode with the standard library's bz2, and K1-K3 must
-   have launched.  Then 7 timed runs, the peak device memory, one run
-   under ``torch.profiler`` (device idle share) and one synchronised run
-   (stage times);
+   the JAX package's source (read as bytes, never imported); the stream
+   must equal the port's host encoder's byte for byte, decode with the
+   standard library's bz2, and K1-K3 must have launched.  Then 7 timed
+   runs, the peak device memory, one run under ``torch.profiler`` (device
+   idle share) and one synchronised run (stage times);
 5. encode: ``banzai_tpu_torch.encode`` on the same input in 3,000,000-byte
    spans (spans end inside blocks); same bytes as ``compress``;
 6. CLI: ``python -m banzai_tpu_torch.cli -c -9 --device cuda <file>`` in
@@ -30,7 +38,10 @@ Phases, one line each or more:
    one block encoded by a host worker.
 
 Every path of phases 4-7 runs with the launch counts set to 0 just
-before it and read just after, and fails unless K1-K3 launched.  The
+before it and read just after, and fails unless K1-K3 launched.  A
+launch is one call of a kernel's entry point (K4's runs three kernels).
+K4's ``launches`` are those of its own phase; its ``main_path_launches``
+are read from the compress run of phase 4.  The
 line before the last is the kernels' JSON; the last line is the result
 JSON.  Any failure raises and exits non-zero.
 """
@@ -56,6 +67,8 @@ ROOT = Path(__file__).resolve().parent
 LEVEL = 9
 BATCH = 8
 MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores
 
 
 def card_line() -> str:
@@ -149,6 +162,18 @@ def compare_compact(cases, kernel, plain, reps):
     return worst, min(k1, k2), min(p1, p2)
 
 
+def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of the bytes moved
+    once over the memory rate and the operations over the peak rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def counted(name, fn):
     """Run ``fn`` with the launch counts set to 0 just before and read
     just after; raise unless every main-path kernel launched."""
@@ -165,12 +190,12 @@ def counted(name, fn):
     return result, launches
 
 
-def profile_busy(fn):
-    """Run ``fn`` under torch.profiler; return (wall s, device busy ms as
-    the union of kernel intervals, the same with copies and memsets
-    added, kernel count)."""
+def trace(fn):
+    """Run ``fn`` under torch.profiler; return (wall s, the trace's
+    complete events)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -181,7 +206,27 @@ def profile_busy(fn):
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    return wall, events
+
+
+def kernel_ms(fn, name: str = "", reps: int = 3):
+    """Device time per call of ``fn`` under torch.profiler: (all its
+    kernels' summed ms, the ms of those whose name holds ``name``, kernel
+    count)."""
+    _, events = trace(lambda: [fn() for _ in range(reps)])
+    ks = [e for e in events if e.get("cat") == "kernel"]
+    named = sum(e["dur"] for e in ks if name in e["name"])
+    return (sum(e["dur"] for e in ks) / 1e3 / reps, named / 1e3 / reps,
+            len(ks) // reps)
+
+
+def profile_busy(fn):
+    """Run ``fn`` under torch.profiler; return (wall s, device busy ms as
+    the union of kernel intervals, the same with copies and memsets
+    added, kernel count)."""
+    wall, events = trace(fn)
 
     def union_ms(cats):
         spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
@@ -214,8 +259,6 @@ def main() -> int:
           f"{torch.version.cuda} | {kind}", flush=True)
 
     import banzai_tpu_torch
-    from banzai_tpu.encoder_host import compress as host_compress
-    from banzai_tpu.rle1 import iter_blocks
     from banzai_tpu_torch import _build, cli, pipeline
     from banzai_tpu_torch.block import unpack_rows
     from banzai_tpu_torch.ops.bitpack import block_payload_entries, splice_entries
@@ -224,7 +267,7 @@ def main() -> int:
         compact_stream, compact_stream_plain,
     )
     from banzai_tpu_torch.ops.huffman import plan_entropy
-    from banzai_tpu_torch.ops.mtf import chunk_states, mtf_indices
+    from banzai_tpu_torch.ops.mtf import CHUNK, mtf_indices, shuffle_inputs
     from banzai_tpu_torch.ops.mtf_kernel import mtf_shuffle, mtf_shuffle_plain
     from banzai_tpu_torch.ops.rle2 import rle2_entries
     from banzai_tpu_torch.ops.stream_kernels import (
@@ -232,10 +275,12 @@ def main() -> int:
         rle2_expand_plain,
     )
     from banzai_tpu_torch.pipeline import (
-        EncodeStats, _CHUNK, _nwords, _padded_len, stage_rows,
+        EncodeStats, _nwords, _padded_len, stage_rows,
     )
-    from banzai_tpu.constants import SEGMENT_WIDTH
-    from banzai_tpu.encoder_host import TINY_BLOCK
+    from banzai_tpu_torch.constants import SEGMENT_WIDTH
+    from banzai_tpu_torch.encoder_host import TINY_BLOCK
+    from banzai_tpu_torch.encoder_host import compress as host_compress
+    from banzai_tpu_torch.rle1 import iter_blocks
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -257,14 +302,14 @@ def main() -> int:
     blk, ns, present = unpack_rows(rows)
     num_names = present.sum(dim=1)
     bwt, _ = bwt_rotations(blk, ns)
-    pos = torch.arange(N, device=dev)[None, :]
-    syms_c = torch.where(pos < ns[:, None], bwt.to(torch.int32), -1)
-    state0 = chunk_states(syms_c, present, _CHUNK)
-    C = BATCH * (N // _CHUNK)
-    k1_syms = syms_c.reshape(C, _CHUNK)
-    k1_state = state0.reshape(C, 256)
-    mtf_shuffle(k1_syms, k1_state, debug_checks=True)   # raises if corrupt
-    idx = mtf_indices(bwt, ns, present, _CHUNK)
+    # K1 at the main path's chunk and at 64, the JAX pipeline's; the debug
+    # build checks that every state stays a byte permutation.
+    K = CHUNK
+    k1_in = {k: shuffle_inputs(bwt, ns, present, k) for k in (K, 64)}
+    for k1_syms, k1_state in k1_in.values():
+        mtf_shuffle(k1_syms, k1_state, debug_checks=True)   # raises if corrupt
+    k1_syms, k1_state = k1_in[K]
+    idx = mtf_indices(bwt, ns, present)
     ent = rle2_entries(idx, ns, num_names)
     syms = rle2_expand(*ent)
     plan = plan_entropy(syms, ent[4], num_names + 2, nseg)
@@ -277,30 +322,73 @@ def main() -> int:
     k3_h = as_int32_bits(hi2).contiguous()
     k3_t = total.to(torch.int32)
 
+    # Bounds from this run's inputs.  K1's operations depend on the data:
+    # a symbol at list position i needs i + 1 compares and i moves.
+    k1_out = mtf_shuffle(k1_syms, k1_state)
+    k1_ops = int((2 * k1_out[k1_out >= 0].to(torch.int64) + 1).sum())
+    k1_bound = bound(nbytes(k1_syms, k1_state, k1_out), k1_ops)
+    k2_bound = bound(nbytes(*ent, syms))
+    k3_bound = bound(nbytes(k3_w, k3_h, k3_t) + BATCH * nwords * 4)
+    # The nearest single PyTorch calls (timed only; the port never calls
+    # them): K2 repeats each entry's value by its width, K3 adds each
+    # entry's bits into its word.
+    k2_width = ent[1].reshape(-1).to(torch.int64)
+    k2_val = ent[3].reshape(-1)
+    k2_size = int(k2_width.sum())
+    k3_acc = torch.zeros(BATCH * (nwords + 1), dtype=torch.int64, device=dev)
+    k3_idx = (torch.arange(BATCH, device=dev)[:, None] * (nwords + 1)
+              + k3_w.to(torch.int64)).reshape(-1)
+    k3_add = (k3_h.to(torch.int64) & 0xFFFFFFFF).reshape(-1)
     cases = [
         ("mtf_shuffle", "banzai_tpu_torch/csrc/mtf_shuffle.cu",
          "banzai_tpu/ops/mtf_pallas.py:73",
          lambda: mtf_shuffle(k1_syms, k1_state),
-         lambda: mtf_shuffle_plain(k1_syms, k1_state), 3),
+         lambda: mtf_shuffle_plain(k1_syms, k1_state), None, k1_bound, 3),
         ("rle2_expand", "banzai_tpu_torch/csrc/rle2_expand.cu",
          "banzai_tpu/ops/stream_pallas.py:159",
-         lambda: rle2_expand(*ent), lambda: rle2_expand_plain(*ent), 5),
+         lambda: rle2_expand(*ent), lambda: rle2_expand_plain(*ent),
+         lambda: torch.repeat_interleave(k2_val, k2_width,
+                                         output_size=k2_size),
+         k2_bound, 5),
         ("pack_words", "banzai_tpu_torch/csrc/pack_words.cu",
          "banzai_tpu/ops/stream_pallas.py:286",
          lambda: pack_words(k3_w, k3_h, k3_t, nwords),
-         lambda: pack_words_plain(k3_w, k3_h, k3_t, nwords), 5),
+         lambda: pack_words_plain(k3_w, k3_h, k3_t, nwords),
+         lambda: k3_acc.index_add_(0, k3_idx, k3_add), k3_bound, 5),
     ]
     kernels = []
-    for name, src, replaces, kern, plain, reps in cases:
+    for name, src, replaces, kern, plain, lib, (b_ms, b_by), reps in cases:
         err, ms, plain_ms = compare(name, kern, plain, reps)
+        lib_ms = time_ms(lib, reps) if lib is not None else None
+        dev_ms = kernel_ms(kern)[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+            "library_ms": lib_ms,
         })
-        print(f"kernel {name}: bitwise equal to plain; {ms:.3f} ms vs "
-              f"plain {plain_ms:.3f} ms", flush=True)
-    shapes = (f"K1 syms {tuple(k1_syms.shape)}, K2 entries "
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        print(f"kernel {name}: bitwise equal to plain; {ms:.3f} ms "
+              f"(device {dev_ms:.3f} ms) vs plain {plain_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms by {b_by} (share {b_ms / ms:.3f}); library "
+              f"call {lib_txt}", flush=True)
+    k1 = kernels[0]
+    k1["chunk"] = K
+    s64, st64 = k1_in[64]
+    err, ms, plain_ms = compare("mtf_shuffle at chunk 64",
+                                lambda: mtf_shuffle(s64, st64),
+                                lambda: mtf_shuffle_plain(s64, st64), 3)
+    b_ms, b_by = bound(nbytes(s64, st64, s64), k1_ops)
+    dev_ms = kernel_ms(lambda: mtf_shuffle(s64, st64))[0]
+    k1["at_chunk_64"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": err}
+    print(f"kernel mtf_shuffle at chunk 64: bitwise equal to plain; "
+          f"{ms:.3f} ms (device {dev_ms:.3f} ms) vs plain {plain_ms:.3f} ms; "
+          f"bound {b_ms:.4f} ms by {b_by}", flush=True)
+    shapes = (f"K1 syms {tuple(k1_syms.shape)} (chunk {K}; "
+              f"{tuple(s64.shape)} at 64), K2 entries "
               f"{tuple(ent[0].shape)}, K3 entries {tuple(k3_w.shape)} "
               f"-> words [{BATCH}, {nwords}]")
     print(f"kernel shapes: {shapes}", flush=True)
@@ -316,22 +404,52 @@ def main() -> int:
     _build.LAUNCHES.clear()
     err, ms, plain_ms = compare_compact(k4_cases, compact_stream,
                                         compact_stream_plain, 5)
+    own_launches = _build.LAUNCHES["compact_stream"]
+    k4_mask = k4_cases[0][0]
+    lib_ms = time_ms(lambda: torch.masked_select(flat, k4_mask), 5)
+    dev_ms = kernel_ms(lambda: compact_stream(k4_mask, flat))[0]
+    b_ms, b_by = bound(nbytes(k4_mask, flat, flat) + 8)
     kept = [int(m.sum()) for m, _ in k4_cases]
     kernels.append({
         "name": "compact_stream", "route": "cuda",
         "source": "banzai_tpu_torch/csrc/compact_stream.cu",
         "replaces": "banzai_tpu/ops/compact_pallas.py:97",
-        "launches": _build.LAUNCHES["compact_stream"],
+        "launches": own_launches,
         "launches_counted_in": "its own phase: K4 is on no path of the "
                                "encoder, as in the JAX package",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "main_path_launches": None,   # read from the compress phase below
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "share": b_ms / ms, "library_ms": lib_ms,
     })
     print(f"kernel compact_stream: bitwise equal to plain with equal "
           f"counts on {len(k4_cases)} masks over {flat.numel()} lanes "
-          f"(kept {kept}); {ms:.3f} ms vs plain {plain_ms:.3f} ms "
-          f"(real-index mask)", flush=True)
-    del rows, blk, bwt, syms_c, state0, idx, ent, syms, plan, vals, lens
-    del w, hi2, total, k3_w, k3_h, k3_t, k1_syms, k1_state, flat, k4_cases
+          f"(kept {kept}); {ms:.3f} ms (device {dev_ms:.3f} ms) vs plain "
+          f"{plain_ms:.3f} ms "
+          f"(real-index mask); bound {b_ms:.4f} ms by {b_by} (share "
+          f"{b_ms / ms:.3f}); library call {lib_ms:.3f} ms", flush=True)
+
+    # The MTF stage's kernels (chunk states + K1) at the scheduler's two
+    # dispatch shapes: the full batch and the quarter batch of 2.
+    mtf_shapes = {BATCH: (bwt, ns, present)}
+    q = max(1, BATCH // 4)
+    q_rows, _ = stage_rows([b.output for b in full[:q]], N, q)
+    q_blk, q_ns, q_present = unpack_rows(q_rows.to(dev))
+    mtf_shapes[q] = (bwt_rotations(q_blk, q_ns)[0], q_ns, q_present)
+    mtf_stage = {}
+    for B, margs in sorted(mtf_shapes.items()):
+        wall_ms = time_ms(lambda: mtf_indices(*margs), 5)
+        k_ms, k1_ms, n_k = kernel_ms(lambda: mtf_indices(*margs),
+                                     "mtf_shuffle")
+        mtf_stage[B] = {"chunk": CHUNK, "ms": wall_ms,
+                        "kernel_ms": k_ms, "k1_ms": k1_ms, "kernels": n_k}
+    print(f"mtf stage (mtf_indices; kernel ms = the profiler's sum of the "
+          f"chunk states' kernels and K1, per call): "
+          f"{json.dumps(mtf_stage)}", flush=True)
+    del rows, blk, bwt, idx, ent, syms, plan, vals, lens, k1_in, k1_out
+    del w, hi2, total, k3_w, k3_h, k3_t, k1_syms, k1_state, s64, st64, flat
+    del k4_cases, k4_mask, k2_width, k2_val, k3_acc, k3_idx, k3_add
+    del mtf_shapes, q_rows, q_blk, q_ns, q_present, margs
 
     # -- 4. compress through the overlapped scheduler ------------------------
     banzai_tpu_torch.compress(data[:2_000_000], LEVEL, device="cuda")  # warm
@@ -343,6 +461,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] in MAIN_KERNELS:
             k["launches"] = launches[k["name"]]
+        else:
+            k["main_path_launches"] = launches.get(k["name"], 0)
 
     ref = host_compress(data, LEVEL, jobs=1)
     if out != ref:
@@ -412,7 +532,7 @@ def main() -> int:
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         t0 = time.perf_counter()
         res = subprocess.run(
-            [sys.executable, "-m", "banzai_tpu_torch.cli", "-c", "-9",
+            [sys.executable, "-m", "banzai_tpu_torch.cli", "-c", f"-{LEVEL}",
              "--device", "cuda", src],
             cwd=ROOT, env=env, capture_output=True, timeout=600,
         )
@@ -424,13 +544,13 @@ def main() -> int:
             raise AssertionError("CLI stream differs from compress")
         dst = os.path.join(tmp, "smoke.bin.bz2")
         rc, launches = counted("CLI main", lambda: cli.main(
-            ["-k", "-9", "--device", "cuda", src]))
+            ["-k", f"-{LEVEL}", "--device", "cuda", src]))
         with open(dst, "rb") as f:
             if rc != 0 or f.read() != out:
                 raise AssertionError(f"CLI main exited {rc} or wrote "
                                      f"another stream")
-    print(f"cli: python -m banzai_tpu_torch.cli -c -9 --device cuda exit 0, "
-          f"equal to compress ({cwall:.3f} s with interpreter start); "
+    print(f"cli: python -m banzai_tpu_torch.cli -c -{LEVEL} --device cuda "
+          f"exit 0, equal to compress ({cwall:.3f} s with interpreter start); "
           f"in-process main launches {launches}", flush=True)
 
     # -- 7. hybrid host stealing ----------------------------------------------

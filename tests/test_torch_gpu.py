@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import banzai_tpu_torch
-from banzai_tpu.encoder_host import compress as host_compress
+from banzai_tpu_torch.encoder_host import compress as host_compress
 from banzai_tpu_torch import _build
 from banzai_tpu_torch.ops.bitpack import splice_entries
 from banzai_tpu_torch.ops.compact_kernel import (
@@ -39,7 +39,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("C,K", [(1000, 64), (37, 100), (5, 7)])
+@pytest.mark.parametrize("C,K", [(1000, 64), (37, 100), (5, 7), (300, 1024),
+                                 (40, 2048), (9, 1030)])
 def test_mtf_shuffle_kernel_matches_plain(cuda, C, K):
     rng = np.random.default_rng(C + K)
     syms = rng.integers(0, 256, (C, K)).astype(np.int32)
@@ -59,6 +60,32 @@ def test_mtf_shuffle_kernel_debug_catches_duplicate(cuda):
     with pytest.raises(AssertionError, match="invariant"):
         mtf_shuffle(torch.zeros((2, 8), dtype=torch.int32, device=cuda), st,
                     debug_checks=True)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_mtf_kernel_at_the_chosen_chunk(cuda, B):
+    """The main path's chunk (``ops.mtf.CHUNK``) on real chunk states:
+    kernel against plain with the debug checks, and ``mtf_indices`` on
+    the card against the CPU at chunk 64."""
+    from banzai_tpu_torch.ops.mtf import CHUNK, mtf_indices, shuffle_inputs
+
+    rng = np.random.default_rng(B)
+    N = 20_000
+    walk = np.cumsum(rng.integers(-2, 3, (B, N)), axis=1) & 0xFF
+    bwt = torch.from_numpy(walk.astype(np.uint8))
+    ns = torch.tensor([N - 37 * b for b in range(B)])
+    present = torch.zeros((B, 256), dtype=torch.bool)
+    for b in range(B):
+        present[b, bwt[b, : int(ns[b])].long()] = True
+    want = mtf_indices(bwt, ns, present, 64)
+    K = CHUNK
+    got = mtf_indices(bwt.to(cuda), ns.to(cuda), present.to(cuda), K)
+    assert torch.equal(got.cpu(), want)
+
+    s, st = shuffle_inputs(bwt.to(cuda), ns.to(cuda), present.to(cuda), K)
+    torch.testing.assert_close(mtf_shuffle(s, st, debug_checks=True),
+                               mtf_shuffle_plain(s, st, debug_checks=True),
+                               rtol=0, atol=0)
 
 
 def _mtf_like(rng, B, N):
