@@ -9,8 +9,8 @@ sources, at first use.  A failed build raises with nvcc's stderr.
 Every kernel wrapper counts its launches in ``LAUNCHES``: one per call of
 an entry point, keyed by the entry's name, so a run can show that its main
 path went through the kernels.  An entry may run more than one
-``__global__`` kernel (``compact_stream`` runs three) and still counts
-one.
+``__global__`` kernel (``rle2_expand``, ``pack_words`` and
+``compact_stream`` run three each) and still counts one.
 """
 
 from __future__ import annotations
@@ -40,10 +40,10 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     # syms, state0, out, err, C, K, vec, debug, stream
     "mtf_shuffle": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
-    # off, width, zp1, val, out_len, out, B, M, stream
-    "rle2_expand": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P],
-    # w, hi2, used, words, B, E, nwords, stream
-    "pack_words": [_P, _P, _P, _P, _I32, _I64, _I64, _P],
+    # idx, n, names, out, out_len, scratch, B, N, n_tiles, stream
+    "rle2_expand": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P],
+    # vals, lens, words, total, scratch, B, E, nwords, n_tiles, stream
+    "pack_words": [_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _P],
     # mask, payload, counts, offs, out, n_tiles, tile, stream
     "compact_stream": [_P, _P, _P, _P, _P, _I64, _I32, _P],
 }

@@ -2,8 +2,8 @@
 
 Counterpart of ``banzai_tpu/parallel/dp.py`` (``encode_batch_rows``, its
 ``use_pallas`` branch).  The batch dimension is written out where the JAX
-version was vmapped; the three kernels (MTF shuffle, RLE2 expansion, word
-assembly) run batch-wide.
+version was vmapped; the three kernels (MTF shuffle, MTF indices to RLE2
+symbols, payload entries to words) run batch-wide.
 """
 
 from __future__ import annotations
@@ -13,12 +13,11 @@ from contextlib import contextmanager, nullcontext
 
 import torch
 
-from .ops.bitpack import block_payload_entries, splice_entries
+from .ops.bitpack import block_payload_entries
 from .ops.bwt import bwt_rotations
 from .ops.huffman import plan_entropy
 from .ops.mtf import mtf_indices
-from .ops.rle2 import rle2_entries
-from .ops.stream_kernels import as_int32_bits, pack_words, rle2_expand
+from .ops.stream_kernels import pack_words_batch, rle2_expand_batch
 
 # Packed-row layout of one batch upload: N block bytes, 256 presence
 # bytes, 3 little-endian length bytes, 1 spare.
@@ -82,8 +81,7 @@ def encode_batch_rows(
     with stage(stage_ms, "mtf", dev):
         idx = mtf_indices(bwt, ns, present, chunk)
     with stage(stage_ms, "rle2", dev):
-        off, width, zp1, val, out_len = rle2_entries(idx, ns, num_names)
-        syms = rle2_expand(off, width, zp1, val, out_len)
+        syms, out_len = rle2_expand_batch(idx, ns, num_names)
     with stage(stage_ms, "plan", dev):
         plan = plan_entropy(syms, out_len, num_names + 2, nseg)
     with stage(stage_ms, "entries", dev):
@@ -91,11 +89,7 @@ def encode_batch_rows(
             syms, out_len, num_names + 2, plan["num_tables"], plan["tables"],
             plan["selectors"], plan["sel_mtf_idx"], plan["nseg_used"],
         )
-        w, hi2, total = splice_entries(vals, lens)
     with stage(stage_ms, "pack", dev):
-        words = pack_words(
-            torch.clamp(w, max=nwords).to(torch.int32), as_int32_bits(hi2),
-            total.to(torch.int32), nwords,
-        )
+        words, total = pack_words_batch(vals, lens, nwords)
     return (words, total, ptrs, plan["total_bits"], plan["banzai_split"],
             out_len)

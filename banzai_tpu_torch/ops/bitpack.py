@@ -4,9 +4,10 @@ Counterpart of ``banzai_tpu/ops/bitpack.py``.  The whole entropy payload
 of a block (table count, selector count, unary-MTF selectors, delta-coded
 length tables, every codeword) becomes one row of (value, bit length)
 entries; an exclusive prefix sum of the lengths gives each entry's bit
-offset, and each entry contributes to at most two 32-bit words.  The word
-assembly is kernel K3 (``stream_kernels.pack_words``); ``pack_entries``
-here is its plain end-to-end form.
+offset, and each entry contributes to at most two 32-bit words.
+``pack_entries`` (``splice_entries``, then the word assembly) is the plain
+version of kernel K3, which computes the same from the entry rows on the
+card (``stream_kernels.pack_words_batch``).
 
 uint32 values are held in int64 with explicit ``& 0xFFFFFFFF`` masks.
 """

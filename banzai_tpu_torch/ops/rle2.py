@@ -3,8 +3,10 @@
 Counterpart of ``banzai_tpu/ops/rle2.py`` (``rle2_entries``), batched over
 blocks.  Maximal runs of MTF index 0 become RUNA/RUNB digit strings (the
 bits of run + 1 below its leading one, LSB first); a nonzero index i
-becomes symbol i + 1; EOB ends the block.  The expansion of the entries
-into symbols is kernel K2 (``stream_kernels.rle2_expand``).
+becomes symbol i + 1; EOB ends the block.  This is the first half of
+K2's plain version (``stream_kernels.rle2_expand_batch_plain``); on the
+card, kernel K2 computes the whole function from the MTF indices
+(``stream_kernels.rle2_expand_batch``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,14 @@
-"""Kernels K2 (RLE2 expansion) and K3 (word assembly), batched over blocks.
+"""Kernels K2 (MTF indices to RLE2 symbols) and K3 (payload entries to
+words), batched over blocks.
 
-Counterparts of ``banzai_tpu/ops/stream_pallas.py`` (``rle2_expand_batch``
-and ``pack_words_batch``).  Each wrapper launches its CUDA kernel
-(``csrc/rle2_expand.cu``, ``csrc/pack_words.cu``) for CUDA tensors and
-runs its plain PyTorch version for CPU tensors.
+Counterparts of ``banzai_tpu/ops/stream_pallas.py``'s
+``rle2_expand_batch`` and ``pack_words_batch``, each the whole function:
+the entry passes that the JAX functions run around their Pallas kernels
+(``rle2_entries``, ``splice_entries``) are inside the CUDA entry points
+(``csrc/rle2_expand.cu``, ``csrc/pack_words.cu``).  Each wrapper launches
+its kernels for CUDA tensors and runs its plain PyTorch version for CPU
+tensors; ``rle2.rle2_entries`` and ``bitpack.splice_entries`` remain as
+the plain versions' first halves.
 """
 
 from __future__ import annotations
@@ -11,6 +16,12 @@ from __future__ import annotations
 import torch
 
 from .._build import launch
+from .rle2 import rle2_entries
+
+# Lanes (K2) and entries (K3) per tile of the kernels' grids; the entry
+# points check the tile counts computed from them.
+RLE2_TILE = 2048
+PACK_TILE = 2048
 
 
 def _check_same(name: str, tensors, shape, dtype, device) -> None:
@@ -22,8 +33,15 @@ def _check_same(name: str, tensors, shape, dtype, device) -> None:
             )
 
 
+def _cuda_or_raise(name: str, device: torch.device, tensors) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
 # ---------------------------------------------------------------------------
-# K2: RLE2 expansion
+# K2: MTF indices -> RLE2 symbols
 # ---------------------------------------------------------------------------
 
 
@@ -31,7 +49,8 @@ def rle2_expand_plain(
     off: torch.Tensor, width: torch.Tensor, zp1: torch.Tensor,
     val: torch.Tensor, out_len: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain version: expand [B, M] RLE2 entries into [B, M] symbols.
+    """Expand [B, M] RLE2 entries (``rle2.rle2_entries``) into [B, M]
+    symbols.
 
     Entry (off, width, zp1, val) fills slots [off, off + width): the
     width - 1 bits of zp1 below its leading one, LSB first, then val.
@@ -53,42 +72,60 @@ def rle2_expand_plain(
     return out.reshape(B, M)
 
 
-def rle2_expand(
-    off: torch.Tensor, width: torch.Tensor, zp1: torch.Tensor,
-    val: torch.Tensor, out_len: torch.Tensor,
-) -> torch.Tensor:
-    """Expand int32 [B, M] entries (``rle2.rle2_entries``) into int32
-    [B, M] symbols on the tensors' device: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    dev = off.device
-    B, M = off.shape
-    _check_same("rle2_expand", (off, width, zp1, val), (B, M),
-                torch.int32, dev)
-    _check_same("rle2_expand", (out_len,), (B,), torch.int32, dev)
+def rle2_expand_batch_plain(
+    mtf_idx: torch.Tensor, n: torch.Tensor, num_names: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``rle2_expand_batch``: the entry stream, then its
+    expansion."""
+    ent = rle2_entries(mtf_idx, n, num_names)
+    return rle2_expand_plain(*ent), ent[4]
+
+
+def rle2_expand_batch(
+    mtf_idx: torch.Tensor, n: torch.Tensor, num_names: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RLE2 of int32 [B, N] MTF indices with true lengths ``n`` [B] and
+    ``num_names`` [B] distinct bytes: (symbols int32 [B, N + 1], 258 from
+    out_len on; out_len int32 [B]).  Lanes at or past n are not read.
+
+    One CUDA entry point for CUDA tensors, the plain version for CPU
+    tensors."""
+    dev = mtf_idx.device
+    if mtf_idx.dim() != 2:
+        raise ValueError("rle2_expand_batch: mtf_idx must be [B, N]")
+    B, N = mtf_idx.shape
+    _check_same("rle2_expand_batch", (mtf_idx,), (B, N), torch.int32, dev)
+    for t in (n, num_names):
+        if t.shape != (B,) or t.device != dev or t.is_floating_point():
+            raise ValueError(
+                f"rle2_expand_batch: n and num_names must be integer [{B}] "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if dev.type == "cpu":
-        return rle2_expand_plain(off, width, zp1, val, out_len)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    ts = (off, width, zp1, val, out_len)
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("rle2_expand: inputs must be contiguous")
-    out = torch.empty((B, M), dtype=torch.int32, device=dev)
+        return rle2_expand_batch_plain(mtf_idx, n, num_names)
+    n64 = n.to(torch.int64)            # no copy when already int64
+    names64 = num_names.to(torch.int64)
+    _cuda_or_raise("rle2_expand_batch", dev, (mtf_idx, n64, names64))
+    n_tiles = -(-(N + 1) // RLE2_TILE)
+    syms = torch.empty((B, N + 1), dtype=torch.int32, device=dev)
+    out_len = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(5 * B * n_tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        launch("rle2_expand", off, width, zp1, val, out_len, out, B, M)
-    return out
+        launch("rle2_expand", mtf_idx, n64, names64, syms, out_len, scratch,
+               B, N, n_tiles)
+    return syms, out_len
 
 
 # ---------------------------------------------------------------------------
-# K3: word assembly
+# K3: payload entries -> words
 # ---------------------------------------------------------------------------
 
 
 def pack_words_plain(
     w: torch.Tensor, hi2: torch.Tensor, total: torch.Tensor, nwords: int
 ) -> torch.Tensor:
-    """Plain version: OR each entry's 32-bit ``hi2`` (int32 bit pattern)
-    into word ``w``; entries with w >= nwords are dropped and words at or
-    past ceil(total / 32) are 0.  Returns int32 [B, nwords] bit patterns.
+    """OR each entry's 32-bit ``hi2`` (``bitpack.splice_entries``) into
+    word ``w``; entries with w >= nwords are dropped and words at or past
+    ceil(total / 32) are 0.  Returns int32 [B, nwords] bit patterns.
 
     The fields within a word are disjoint, so OR equals ADD and a
     scatter-add in int64 computes it exactly."""
@@ -109,25 +146,41 @@ def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def pack_words(
-    w: torch.Tensor, hi2: torch.Tensor, total: torch.Tensor, nwords: int
-) -> torch.Tensor:
-    """Assemble int32 [B, E] (word, contribution) entries into int32
-    [B, nwords] word bit patterns on the tensors' device: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors.  ``total`` is the
-    int32 [B] bit count of each block."""
-    dev = w.device
-    B, E = w.shape
-    _check_same("pack_words", (w, hi2), (B, E), torch.int32, dev)
-    _check_same("pack_words", (total,), (B,), torch.int32, dev)
+def pack_words_batch_plain(
+    vals: torch.Tensor, lens: torch.Tensor, nwords: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``pack_words_batch``: ``bitpack.pack_entries``
+    (the entries' word fields, then their assembly), total as int32."""
+    from .bitpack import pack_entries
+
+    words, total = pack_entries(vals, lens, nwords)
+    return words, total.to(torch.int32)
+
+
+def pack_words_batch(
+    vals: torch.Tensor, lens: torch.Tensor, nwords: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack int64 [B, E] (value, bit length) entries, as
+    ``bitpack.block_payload_entries`` gives them (lengths in [0, 32]), MSB
+    first: (words int32 [B, nwords], the uint32 bit patterns, 0 from
+    ceil(total / 32) on, bits past word nwords dropped; total int32 [B],
+    the full bit count even past nwords * 32).
+
+    One CUDA entry point for CUDA tensors, the plain version for CPU
+    tensors."""
+    dev = vals.device
+    if vals.dim() != 2:
+        raise ValueError("pack_words_batch: vals must be [B, E]")
+    B, E = vals.shape
+    _check_same("pack_words_batch", (vals, lens), (B, E), torch.int64, dev)
     if dev.type == "cpu":
-        return pack_words_plain(w, hi2, total, nwords)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not (w.is_contiguous() and hi2.is_contiguous()):
-        raise ValueError("pack_words: inputs must be contiguous")
-    used = ((total + 31) >> 5).contiguous()
-    words = torch.zeros((B, nwords), dtype=torch.int32, device=dev)
+        return pack_words_batch_plain(vals, lens, nwords)
+    _cuda_or_raise("pack_words_batch", dev, (vals, lens))
+    n_tiles = max(1, -(-E // PACK_TILE))
+    words = torch.empty((B, nwords), dtype=torch.int32, device=dev)
+    total = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * B * n_tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        launch("pack_words", w, hi2, used, words, B, E, nwords)
-    return words
+        launch("pack_words", vals, lens, words, total, scratch, B, E, nwords,
+               n_tiles)
+    return words, total

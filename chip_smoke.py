@@ -12,16 +12,22 @@ Phases, one line each or more:
    on inputs the real pipeline makes from real blocks, checks each
    bitwise against its plain PyTorch version on the card, and times both
    (CUDA events, median, in turns); K1 runs at the main path's chunk
-   (``ops.mtf.CHUNK``) and again at chunk 64, the JAX pipeline's.  K4
-   (stream compaction, on no path of the encoder) runs on the batch's
-   flattened MTF indices and on three random masks at the same length,
-   bitwise against its plain version.  Beside each kernel: its bound
-   (bytes moved once at 3.35 TB/s, or its operations at 67 T/s, whichever
-   is larger), its share of that bound, and the time of the nearest
-   single PyTorch call (``library_ms``; none for K1), which the port
-   never calls.  Then the MTF stage's kernel time under torch.profiler
-   (the chunk states' kernels and K1, one ``mtf_indices`` call) at both
-   dispatch shapes, batches of 8 and 2;
+   (``ops.mtf.CHUNK``) and again at chunk 64, the JAX pipeline's.  K2 and
+   K3 are the whole functions of their TPU kernels: MTF indices to RLE2
+   symbols (``rle2_expand_batch``) and payload entries to words
+   (``pack_words_batch``).  K4 (stream compaction, on no path of the
+   encoder) runs on the batch's flattened MTF indices and on three random
+   masks at the same length, bitwise against its plain version.  Beside
+   each kernel: its device time and kernel count per call
+   (torch.profiler), its bound (bytes moved once at 3.35 TB/s, or its
+   operations at 67 T/s, whichever is larger), its share of that bound,
+   and the time of the nearest single PyTorch call (``library_ms``; none
+   for K1), which the port never calls (for K2 ``repeat_interleave`` of
+   the entries, the expansion half; for K3 ``index_add_`` of the word
+   fields, the assembly half).  Then, at both dispatch shapes (batches of
+   8 and 2), the profiler's kernel time and count of one ``mtf_indices``
+   call (the chunk states' kernels and K1), and of one call of each of
+   K2's and K3's functions;
 4. compress: ``banzai_tpu_torch.compress(data, 9, device="cuda")`` through
    the overlapped block scheduler on about 8.6 MB built from the seed and
    the JAX package's source (read as bytes, never imported); the stream
@@ -53,6 +59,7 @@ import bz2
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,16 +126,22 @@ def time_ms(fn, reps: int = 5) -> float:
 
 
 def compare(name, kernel, plain, reps):
-    """Run kernel and plain on the same inputs, require bitwise equality,
-    time both in turns (plain, kernel, kernel, plain)."""
+    """Run kernel and plain on the same inputs, require bitwise equality
+    of every output (one tensor or a tuple), time both in turns (plain,
+    kernel, kernel, plain)."""
     got = kernel()
     want = plain()
     torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
-                             f"{want.shape}/{want.dtype}")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if not torch.equal(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                                 f"{w.shape}/{w.dtype}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max()))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"{name}: kernel disagrees with plain, "
                              f"max abs err {err}")
     p1 = time_ms(plain, reps)
@@ -222,6 +235,19 @@ def kernel_ms(fn, name: str = "", reps: int = 3):
             len(ks) // reps)
 
 
+def kernel_split(fn, reps: int = 3) -> dict:
+    """Device ms per call of ``fn`` under torch.profiler, by kernel (the
+    ``*_kernel`` part of each name where it has one)."""
+    _, events = trace(lambda: [fn() for _ in range(reps)])
+    split: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            m = re.search(r"(\w+_kernel)\b", e["name"])
+            key = m.group(1) if m else e["name"][:48]
+            split[key] = split.get(key, 0.0) + e["dur"] / 1e3 / reps
+    return split
+
+
 def profile_busy(fn):
     """Run ``fn`` under torch.profiler; return (wall s, device busy ms as
     the union of kernel intervals, the same with copies and memsets
@@ -271,8 +297,8 @@ def main() -> int:
     from banzai_tpu_torch.ops.mtf_kernel import mtf_shuffle, mtf_shuffle_plain
     from banzai_tpu_torch.ops.rle2 import rle2_entries
     from banzai_tpu_torch.ops.stream_kernels import (
-        as_int32_bits, pack_words, pack_words_plain, rle2_expand,
-        rle2_expand_plain,
+        pack_words_batch, pack_words_batch_plain, rle2_expand_batch,
+        rle2_expand_batch_plain,
     )
     from banzai_tpu_torch.pipeline import (
         EncodeStats, _nwords, _padded_len, stage_rows,
@@ -300,7 +326,6 @@ def main() -> int:
     rows_h, _ = stage_rows([b.output for b in full[:BATCH]], N, BATCH)
     rows = rows_h.to(dev)
     blk, ns, present = unpack_rows(rows)
-    num_names = present.sum(dim=1)
     bwt, _ = bwt_rotations(blk, ns)
     # K1 at the main path's chunk and at 64, the JAX pipeline's; the debug
     # build checks that every state stays a byte permutation.
@@ -309,36 +334,50 @@ def main() -> int:
     for k1_syms, k1_state in k1_in.values():
         mtf_shuffle(k1_syms, k1_state, debug_checks=True)   # raises if corrupt
     k1_syms, k1_state = k1_in[K]
-    idx = mtf_indices(bwt, ns, present)
-    ent = rle2_entries(idx, ns, num_names)
-    syms = rle2_expand(*ent)
-    plan = plan_entropy(syms, ent[4], num_names + 2, nseg)
-    vals, lens = block_payload_entries(
-        syms, ent[4], num_names + 2, plan["num_tables"], plan["tables"],
-        plan["selectors"], plan["sel_mtf_idx"], plan["nseg_used"],
-    )
-    w, hi2, total = splice_entries(vals, lens)
-    k3_w = torch.clamp(w, max=nwords).to(torch.int32).contiguous()
-    k3_h = as_int32_bits(hi2).contiguous()
-    k3_t = total.to(torch.int32)
+
+    def stream_inputs(bwt, ns, present):
+        """K2's and K3's inputs as the main path makes them: (MTF
+        indices, n, num_names) and the payload entry rows (vals, lens)."""
+        num_names = present.sum(dim=1)
+        idx = mtf_indices(bwt, ns, present)
+        syms, out_len = rle2_expand_batch(idx, ns, num_names)
+        plan = plan_entropy(syms, out_len, num_names + 2, nseg)
+        vals, lens = block_payload_entries(
+            syms, out_len, num_names + 2, plan["num_tables"],
+            plan["tables"], plan["selectors"], plan["sel_mtf_idx"],
+            plan["nseg_used"],
+        )
+        return (idx, ns, num_names), (vals, lens)
+
+    k2_in, k3_in = stream_inputs(bwt, ns, present)
+    idx = k2_in[0]
+    syms, out_len = rle2_expand_batch(*k2_in)
+    words, total = pack_words_batch(*k3_in, nwords)
 
     # Bounds from this run's inputs.  K1's operations depend on the data:
     # a symbol at list position i needs i + 1 compares and i moves.
     k1_out = mtf_shuffle(k1_syms, k1_state)
     k1_ops = int((2 * k1_out[k1_out >= 0].to(torch.int64) + 1).sum())
     k1_bound = bound(nbytes(k1_syms, k1_state, k1_out), k1_ops)
-    k2_bound = bound(nbytes(*ent, syms))
-    k3_bound = bound(nbytes(k3_w, k3_h, k3_t) + BATCH * nwords * 4)
+    # K2 reads the int32 indices and int64 n and num_names and writes the
+    # symbols and out_len; K3 reads the int64 entry rows and writes the
+    # words and the totals.
+    k2_bound = bound(nbytes(*k2_in, syms, out_len))
+    k3_bound = bound(nbytes(*k3_in, words, total))
     # The nearest single PyTorch calls (timed only; the port never calls
-    # them): K2 repeats each entry's value by its width, K3 adds each
-    # entry's bits into its word.
+    # them), each on its half of the function's work, from the plain
+    # versions' intermediates: K2 repeats each RLE2 entry's value by its
+    # width (the expansion, from rle2_entries), K3 adds each entry's word
+    # field into its word (the assembly, from splice_entries).
+    ent = rle2_entries(*k2_in)
     k2_width = ent[1].reshape(-1).to(torch.int64)
     k2_val = ent[3].reshape(-1)
     k2_size = int(k2_width.sum())
+    w, hi2, _ = splice_entries(*k3_in)
     k3_acc = torch.zeros(BATCH * (nwords + 1), dtype=torch.int64, device=dev)
     k3_idx = (torch.arange(BATCH, device=dev)[:, None] * (nwords + 1)
-              + k3_w.to(torch.int64)).reshape(-1)
-    k3_add = (k3_h.to(torch.int64) & 0xFFFFFFFF).reshape(-1)
+              + torch.clamp(w, max=nwords)).reshape(-1)
+    k3_add = hi2.reshape(-1)
     cases = [
         ("mtf_shuffle", "banzai_tpu_torch/csrc/mtf_shuffle.cu",
          "banzai_tpu/ops/mtf_pallas.py:73",
@@ -346,33 +385,44 @@ def main() -> int:
          lambda: mtf_shuffle_plain(k1_syms, k1_state), None, k1_bound, 3),
         ("rle2_expand", "banzai_tpu_torch/csrc/rle2_expand.cu",
          "banzai_tpu/ops/stream_pallas.py:159",
-         lambda: rle2_expand(*ent), lambda: rle2_expand_plain(*ent),
+         lambda: rle2_expand_batch(*k2_in),
+         lambda: rle2_expand_batch_plain(*k2_in),
          lambda: torch.repeat_interleave(k2_val, k2_width,
                                          output_size=k2_size),
          k2_bound, 5),
         ("pack_words", "banzai_tpu_torch/csrc/pack_words.cu",
          "banzai_tpu/ops/stream_pallas.py:286",
-         lambda: pack_words(k3_w, k3_h, k3_t, nwords),
-         lambda: pack_words_plain(k3_w, k3_h, k3_t, nwords),
+         lambda: pack_words_batch(*k3_in, nwords),
+         lambda: pack_words_batch_plain(*k3_in, nwords),
          lambda: k3_acc.index_add_(0, k3_idx, k3_add), k3_bound, 5),
     ]
+    library_of = {"rle2_expand": "repeat_interleave of the RLE2 entries "
+                                 "(the expansion half)",
+                  "pack_words": "index_add_ of the word fields (the "
+                                "assembly half)"}
     kernels = []
     for name, src, replaces, kern, plain, lib, (b_ms, b_by), reps in cases:
         err, ms, plain_ms = compare(name, kern, plain, reps)
         lib_ms = time_ms(lib, reps) if lib is not None else None
-        dev_ms = kernel_ms(kern)[0]
+        dev_ms, _, per_call = kernel_ms(kern)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
-            "library_ms": lib_ms,
+            "ms": ms, "device_ms": dev_ms, "kernels_per_call": per_call,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share": b_ms / ms, "library_ms": lib_ms,
         })
-        lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        lib_txt = ("none" if lib_ms is None else
+                   f"{lib_ms:.3f} ms ({library_of[name]})")
         print(f"kernel {name}: bitwise equal to plain; {ms:.3f} ms "
-              f"(device {dev_ms:.3f} ms) vs plain {plain_ms:.3f} ms; bound "
-              f"{b_ms:.4f} ms by {b_by} (share {b_ms / ms:.3f}); library "
-              f"call {lib_txt}", flush=True)
+              f"(device {dev_ms:.3f} ms in {per_call} kernels) vs plain "
+              f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} (share "
+              f"{b_ms / ms:.3f}); library call {lib_txt}", flush=True)
+    print("history, not measured here (PERF.md section 6, the per-entry "
+          "rows): the per-entry kernels the whole functions replace, K2 "
+          "0.086 ms (device 0.060) after ~95 PyTorch passes of "
+          "rle2_entries, K3 0.121 ms (device 0.050) after ~40 of "
+          "splice_entries and casts", flush=True)
     k1 = kernels[0]
     k1["chunk"] = K
     s64, st64 = k1_in[64]
@@ -388,9 +438,9 @@ def main() -> int:
           f"{ms:.3f} ms (device {dev_ms:.3f} ms) vs plain {plain_ms:.3f} ms; "
           f"bound {b_ms:.4f} ms by {b_by}", flush=True)
     shapes = (f"K1 syms {tuple(k1_syms.shape)} (chunk {K}; "
-              f"{tuple(s64.shape)} at 64), K2 entries "
-              f"{tuple(ent[0].shape)}, K3 entries {tuple(k3_w.shape)} "
-              f"-> words [{BATCH}, {nwords}]")
+              f"{tuple(s64.shape)} at 64), K2 indices {tuple(idx.shape)} "
+              f"-> symbols {tuple(syms.shape)}, K3 entries "
+              f"{tuple(k3_in[0].shape)} -> words {tuple(words.shape)}")
     print(f"kernel shapes: {shapes}", flush=True)
 
     # K4: the batch's MTF indices flattened (mask idx != 0, payload idx),
@@ -429,27 +479,47 @@ def main() -> int:
           f"(real-index mask); bound {b_ms:.4f} ms by {b_by} (share "
           f"{b_ms / ms:.3f}); library call {lib_ms:.3f} ms", flush=True)
 
-    # The MTF stage's kernels (chunk states + K1) at the scheduler's two
-    # dispatch shapes: the full batch and the quarter batch of 2.
+    # The MTF stage's kernels (chunk states + K1), and K2's and K3's
+    # functions, at the scheduler's two dispatch shapes: the full batch
+    # and the quarter batch of 2.
     mtf_shapes = {BATCH: (bwt, ns, present)}
     q = max(1, BATCH // 4)
     q_rows, _ = stage_rows([b.output for b in full[:q]], N, q)
     q_blk, q_ns, q_present = unpack_rows(q_rows.to(dev))
     mtf_shapes[q] = (bwt_rotations(q_blk, q_ns)[0], q_ns, q_present)
-    mtf_stage = {}
+    stream_shapes = {BATCH: (k2_in, k3_in),
+                     q: stream_inputs(*mtf_shapes[q])}
+    mtf_stage, stream_fns = {}, {}
     for B, margs in sorted(mtf_shapes.items()):
         wall_ms = time_ms(lambda: mtf_indices(*margs), 5)
         k_ms, k1_ms, n_k = kernel_ms(lambda: mtf_indices(*margs),
                                      "mtf_shuffle")
         mtf_stage[B] = {"chunk": CHUNK, "ms": wall_ms,
                         "kernel_ms": k_ms, "k1_ms": k1_ms, "kernels": n_k}
+        s2, s3 = stream_shapes[B]
+        fns = {"rle2_expand_batch": lambda: rle2_expand_batch(*s2),
+               "pack_words_batch": lambda: pack_words_batch(*s3, nwords)}
+        stream_fns[B] = {}
+        for fname, fn in fns.items():
+            wall_ms = time_ms(fn, 5)
+            k_ms, _, n_k = kernel_ms(fn)
+            stream_fns[B][fname] = {"ms": wall_ms, "kernel_ms": k_ms,
+                                    "kernels": n_k,
+                                    "by_kernel_ms": kernel_split(fn)}
+            if n_k > 4:
+                raise AssertionError(f"{fname} at batch {B}: {n_k} "
+                                     f"kernels per call, more than 4")
     print(f"mtf stage (mtf_indices; kernel ms = the profiler's sum of the "
           f"chunk states' kernels and K1, per call): "
           f"{json.dumps(mtf_stage)}", flush=True)
-    del rows, blk, bwt, idx, ent, syms, plan, vals, lens, k1_in, k1_out
-    del w, hi2, total, k3_w, k3_h, k3_t, k1_syms, k1_state, s64, st64, flat
+    print(f"rle2 and pack functions (one call each; kernel ms and kernels "
+          f"= the profiler's sum and count per call, by_kernel_ms its split): "
+          f"{json.dumps(stream_fns)}", flush=True)
+    del rows, blk, bwt, idx, ent, syms, out_len, k1_in, k1_out, k2_in, k3_in
+    del w, hi2, words, total, k1_syms, k1_state, s64, st64, flat
     del k4_cases, k4_mask, k2_width, k2_val, k3_acc, k3_idx, k3_add
-    del mtf_shapes, q_rows, q_blk, q_ns, q_present, margs
+    del mtf_shapes, stream_shapes, q_rows, q_blk, q_ns, q_present, margs
+    del s2, s3, fns, fn
 
     # -- 4. compress through the overlapped scheduler ------------------------
     banzai_tpu_torch.compress(data[:2_000_000], LEVEL, device="cuda")  # warm

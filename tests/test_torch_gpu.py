@@ -17,17 +17,15 @@ import torch
 import banzai_tpu_torch
 from banzai_tpu_torch.encoder_host import compress as host_compress
 from banzai_tpu_torch import _build
-from banzai_tpu_torch.ops.bitpack import splice_entries
 from banzai_tpu_torch.ops.compact_kernel import (
     compact_stream, compact_stream_plain,
 )
 from banzai_tpu_torch.ops.mtf_kernel import mtf_shuffle, mtf_shuffle_plain
-from banzai_tpu_torch.ops.rle2 import rle2_entries
 from banzai_tpu_torch.ops.stream_kernels import (
-    as_int32_bits, pack_words, pack_words_plain, rle2_expand,
-    rle2_expand_plain,
+    PACK_TILE, RLE2_TILE, pack_words_batch, pack_words_batch_plain,
+    rle2_expand_batch, rle2_expand_batch_plain,
 )
-from banzai_tpu_torch.pipeline import EncodeStats
+from banzai_tpu_torch.pipeline import EncodeStats, _padded_len
 
 pytestmark = pytest.mark.gpu
 
@@ -94,33 +92,78 @@ def _mtf_like(rng, B, N):
     return raw.astype(np.int32)
 
 
-@pytest.mark.parametrize("ns", [[20000, 19000, 7], [1, 2, 3]])
-def test_rle2_expand_kernel_matches_plain(cuda, ns):
-    rng = np.random.default_rng(len(ns) + ns[0])
-    idx = torch.from_numpy(_mtf_like(rng, 3, 20000)).to(cuda)
-    ent = rle2_entries(idx, torch.tensor(ns, device=cuda),
-                       torch.tensor([200, 31, 5], device=cuda))
-    got = rle2_expand(*ent)
-    torch.testing.assert_close(got, rle2_expand_plain(*ent), rtol=0, atol=0)
+T = RLE2_TILE
+LEVEL1_N = _padded_len(1)
+# (B, N, true lengths or None for N in every row): the first two are the
+# per-entry kernel's old cases; then one tile exactly (M = N + 1 = T) and
+# one lane either side, two tiles, rows ending inside a tile, and the
+# scheduler's batches at level 1.
+RLE2_CASES = [
+    (3, 20000, [20000, 19000, 7]), (3, 20000, [1, 2, 3]),
+    (2, T - 1, None), (2, T - 2, None), (2, T, None), (2, 2 * T - 1, None),
+    (3, 3 * T, [T + 1, 2 * T - 1, 2 * T]),
+    (2, LEVEL1_N, None), (8, LEVEL1_N, None), (64, LEVEL1_N, None),
+]
 
 
-@pytest.mark.parametrize("kind", ["mixed", "pileup", "overflow"])
-def test_pack_words_kernel_matches_plain(cuda, kind):
-    rng = np.random.default_rng(len(kind))
-    E = 5000
+@pytest.mark.parametrize("B,N,ns", RLE2_CASES)
+def test_rle2_expand_batch_kernel_matches_plain(cuda, B, N, ns):
+    rng = np.random.default_rng(B * N + len(ns or []))
+    idx = _mtf_like(rng, B, N)
+    if B > 1:
+        idx[1, 100 : 100 + min(N - 100, 3 * T + 77)] = 0    # over 3 tiles
+    ns = torch.tensor(ns or [N - 13 * b for b in range(B)], device=cuda)
+    idx = torch.from_numpy(idx).to(cuda)
+    idx = torch.where(torch.arange(N, device=cuda)[None, :] < ns[:, None],
+                      idx, -1).to(torch.int32)               # -1 past n
+    names = torch.tensor([200, 31, 5] * (B // 3 + 1), device=cuda)[:B]
+    before = _build.LAUNCHES["rle2_expand"]
+    syms, out_len = rle2_expand_batch(idx, ns, names)
+    assert _build.LAUNCHES["rle2_expand"] == before + 1
+    want_syms, want_len = rle2_expand_batch_plain(idx, ns, names)
+    assert torch.equal(out_len, want_len)
+    assert torch.equal(syms, want_syms)
+
+
+P = PACK_TILE
+LEVEL1_E = 2 + (LEVEL1_N + 50) // 50 + 6 * (1 + 3 * 258) + LEVEL1_N + 1
+# (kind, B, E): the old per-entry cases, lengths of 32 across tiles,
+# tile-sized rows and one entry either side, and the level-1 batches.
+PACK_CASES = [
+    ("mixed", 2, 5000), ("pileup", 2, 5000), ("overflow", 2, 5000),
+    ("len32", 2, 3 * P + 5), ("mixed", 2, P), ("mixed", 2, P - 1),
+    ("mixed", 2, P + 1), ("sparse", 1, 2 * P),
+    ("mixed", 2, LEVEL1_E), ("mixed", 8, LEVEL1_E), ("mixed", 64, LEVEL1_E),
+]
+
+
+@pytest.mark.parametrize("kind,B,E", PACK_CASES)
+def test_pack_words_batch_kernel_matches_plain(cuda, kind, B, E):
+    rng = np.random.default_rng(len(kind) + B + E)
     if kind == "pileup":
-        lens = np.zeros((2, E), np.int64)
+        lens = np.zeros((B, E), np.int64)
         lens[:, 0], lens[:, -1] = 7, 13
+    elif kind == "len32":
+        lens = np.where(rng.random((B, E)) < 0.5, 32,
+                        rng.integers(0, 33, (B, E)))
+    elif kind == "sparse":
+        lens = np.where(rng.random((B, E)) < 0.9, 0,
+                        rng.integers(1, 33, (B, E)))
     else:
-        lens = rng.integers(0, 33 if kind == "overflow" else 18, (2, E))
-    vals = rng.integers(0, 1 << 32, (2, E), dtype=np.int64)
-    w, hi2, total = splice_entries(torch.from_numpy(vals).to(cuda),
-                                   torch.from_numpy(lens).to(cuda))
-    nwords = int(total.max()) // (64 if kind == "overflow" else 32) + 2
-    args = (torch.clamp(w, max=nwords).to(torch.int32).contiguous(),
-            as_int32_bits(hi2).contiguous(), total.to(torch.int32), nwords)
-    torch.testing.assert_close(pack_words(*args), pack_words_plain(*args),
-                               rtol=0, atol=0)
+        lens = rng.integers(0, 33 if kind == "overflow" else 18, (B, E))
+    vals = torch.from_numpy(
+        rng.integers(0, 1 << 32, (B, E), dtype=np.int64)).to(cuda)
+    lens = torch.from_numpy(lens.astype(np.int64)).to(cuda)
+    bits = int(lens.sum(1).max())
+    nwords = bits // (64 if kind == "overflow" else 32) + 2
+    before = _build.LAUNCHES["pack_words"]
+    words, total = pack_words_batch(vals, lens, nwords)
+    assert _build.LAUNCHES["pack_words"] == before + 1
+    want_words, want_total = pack_words_batch_plain(vals, lens, nwords)
+    assert torch.equal(total, want_total)
+    assert torch.equal(words, want_words)
+    if kind == "overflow":
+        assert int(total.max()) > nwords * 32
 
 
 @pytest.mark.parametrize("n,tile,density", [

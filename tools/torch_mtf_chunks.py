@@ -20,7 +20,9 @@ another commit, with its own ``banzai_tpu_torch`` and whatever that
 imports) in turns, DIR, this, this, DIR, each in a fresh process:
 ``mtf_indices`` at each tree's own default chunk as above, and
 ``compress`` of the whole input at level 9 (median wall of 7 runs after a
-warm-up, peak device memory).
+warm-up, peak device memory, the stage times of one synchronised run, and
+the kernel count, busy time and idle share of one run under
+torch.profiler).
 
 Every result is one JSON line on stdout (and in ``--out``), beside the
 card's name and power limit from nvidia-smi.
@@ -60,6 +62,7 @@ def measure(tree: Path, seed: int, chunks, with_compress: bool):
     import torch
 
     import banzai_tpu_torch
+    from banzai_tpu_torch import pipeline
     from banzai_tpu_torch.block import unpack_rows
     from banzai_tpu_torch.ops import mtf as mtf_mod
     from banzai_tpu_torch.ops.bwt import bwt_rotations
@@ -109,10 +112,17 @@ def measure(tree: Path, seed: int, chunks, with_compress: bool):
             walls.append(time.perf_counter() - t0)
         torch.cuda.reset_peak_memory_stats()
         banzai_tpu_torch.compress(data, 9, device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        staged = pipeline.EncodeStats(stage_ms={})
+        banzai_tpu_torch.compress(data, 9, device="cuda", stats=staged)
+        pwall, busy_ms, _, n_kernels = smoke.profile_busy(
+            lambda: banzai_tpu_torch.compress(data, 9, device="cuda"))
         q1, med, q3 = statistics.quantiles(walls, n=4)
         yield {"tree": str(tree), "compress_s": med, "quartiles_s": [q1, q3],
-               "mb_s": len(data) / med / 1e6,
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "mb_s": len(data) / med / 1e6, "peak_gb": peak / 1e9,
+               "stage_ms": staged.stage_ms, "profiled_wall_ms": pwall * 1e3,
+               "kernels": n_kernels, "kernels_busy_ms": busy_ms,
+               "idle_share": 1 - busy_ms / 1e3 / pwall}
 
 
 def main() -> int:
