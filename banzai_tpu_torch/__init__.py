@@ -1,7 +1,7 @@
 """banzai_tpu_torch — the banzai_tpu bzip2 encoder in PyTorch and CUDA.
 
 The per-block pipeline (BWT -> MTF -> RLE2 -> entropy plan -> bit packing)
-runs as batched PyTorch tensor code on one CUDA device, with hand-written
+runs as batched PyTorch tensor code on CUDA devices, with hand-written
 CUDA kernels (``csrc/``) for the MTF shuffle, the RLE2 expansion and the
 word assembly.  Host RLE1, staging, the device and the drain overlap on
 threads of their own (``pipeline.compress_blocks_iter``).  The host side
@@ -21,11 +21,16 @@ Public API:
 * ``encode_file(input_path, output_path, level=9, device="cuda")``
 
 ``device`` is explicit: ``"cuda"`` without a CUDA device raises, and
-``"cpu"`` runs the kernels' plain PyTorch versions.
+``"cpu"`` runs the kernels' plain PyTorch versions.  ``"cuda"`` is the
+current card; a sequence such as ``["cuda:0", "cuda:1"]`` names the
+devices, one device thread each (``parallel.dp.block_devices``).
+``parallel.multihost`` spreads an encode over the processes of a
+``torch.distributed`` group.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import TYPE_CHECKING, BinaryIO
 
 if TYPE_CHECKING:
@@ -52,7 +57,7 @@ def _check_level(level: int) -> None:
 def compress(
     data: bytes,
     level: int = 9,
-    device: str = "cuda",
+    device: str | Sequence[str] = "cuda",
     stats: EncodeStats | None = None,
     *,
     batch: int | None = None,
@@ -74,7 +79,7 @@ def encode(
     reader: BinaryIO,
     writer: BinaryIO,
     level: int = 9,
-    device: str = "cuda",
+    device: str | Sequence[str] = "cuda",
     span_bytes: int = 32 * 1024 * 1024,
     report=None,
 ) -> int:
@@ -87,17 +92,18 @@ def encode(
     tail are all that is carried from span to span.  Each finished block
     is written out at once.  When ``report`` (a
     ``profiling.EncodeReport``) is given, per-block stats are
-    appended to it as blocks are written.  The device is resolved before
-    anything is read or written."""
-    from ._device import resolve_device
+    appended to it as blocks are written.  ``device`` is as in
+    ``compress``; the devices are resolved before anything is read or
+    written."""
     from .bitio import BitWriter
     from .container import write_stream_footer, write_stream_header
     from .crc32 import combine_stream_crc
+    from .parallel.dp import block_devices
     from .pipeline import compress_blocks_iter
     from .rle1 import split_blocks
 
     _check_level(level)
-    dev = resolve_device(device)
+    devs = block_devices(device)
     bw = BitWriter()
     write_stream_header(bw, level)
     stream_crc = 0
@@ -131,7 +137,7 @@ def encode(
                 yield blk
             tail = data[consumed:]
 
-    for blk, p in compress_blocks_iter(span_blocks(), level, dev):
+    for blk, p in compress_blocks_iter(span_blocks(), level, devs):
         stream_crc = combine_stream_crc(stream_crc, p.crc)
         p.write(bw)
         if report is not None:
@@ -145,7 +151,10 @@ def encode(
 
 
 def encode_file(
-    input_path: str, output_path: str, level: int = 9, device: str = "cuda"
+    input_path: str,
+    output_path: str,
+    level: int = 9,
+    device: str | Sequence[str] = "cuda",
 ) -> None:
     """File-to-file encode (level 9 by default, as the reference's)."""
     with open(input_path, "rb") as fin, open(output_path, "wb") as fout:

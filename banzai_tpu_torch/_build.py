@@ -130,11 +130,23 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call kernel entry point ``name`` on the current CUDA stream; raise
-    if the launch was refused.  Tensors are passed as device pointers."""
+    if the launch was refused.  Tensors are passed as device pointers.
+    Every wrapper calls this inside ``torch.cuda.device`` of its tensors,
+    so the kernel runs on their card, on that card's current stream of
+    the calling thread."""
     lib = library()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, name)(*conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
+
+
+_LAUNCHES_LOCK = threading.Lock()   # several device threads launch at once
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1

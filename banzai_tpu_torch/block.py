@@ -8,6 +8,7 @@ symbols, payload entries to words) run batch-wide.
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager, nullcontext
 
@@ -30,6 +31,9 @@ def nvtx_range(name: str, device: torch.device):
     return torch.cuda.nvtx.range(name) if device.type == "cuda" else nullcontext()
 
 
+_STAGE_MS_LOCK = threading.Lock()   # device threads share one stage_ms
+
+
 @contextmanager
 def stage(stage_ms: dict | None, name: str, device: torch.device):
     """Open an NVTX range for the enclosed stage, and add its wall time to
@@ -45,9 +49,9 @@ def stage(stage_ms: dict | None, name: str, device: torch.device):
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        stage_ms[name] = (
-            stage_ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
-        )
+        dt = 1e3 * (time.perf_counter() - t0)
+        with _STAGE_MS_LOCK:
+            stage_ms[name] = stage_ms.get(name, 0.0) + dt
 
 
 def unpack_rows(rows: torch.Tensor):

@@ -1,8 +1,8 @@
 """Orchestration: host RLE1 blocks -> overlapped device batches -> stream.
 
 Counterpart of ``banzai_tpu/pipeline.py`` (``compress_blocks_iter``,
-``compress_blocks_payloads``, ``compress``) on one device.  A call of
-``compress_blocks_iter`` runs three threads beside its caller:
+``compress_blocks_payloads``, ``compress``).  A call of
+``compress_blocks_iter`` runs these threads beside its caller:
 
 * producer: pulls RLE1 blocks from the caller's iterator (so RLE1 of the
   next blocks runs here), tags each with a sequence id, encodes tiny
@@ -10,19 +10,23 @@ Counterpart of ``banzai_tpu/pipeline.py`` (``compress_blocks_iter``,
   batches (a quarter batch, a full batch, then windows of
   ``_SORT_WINDOW`` batches stable-sorted by ``_hardness``) and stages each
   batch's rows into pinned host memory;
-* device: uploads a batch, runs ``block.encode_batch_rows`` on the one
-  compute stream of the call, packs the per-block head and the first
-  ``k`` words of every row into one buffer, starts its copy into pinned
-  host memory and records an event;
+* device, one per entry of ``parallel.dp.block_devices(device)``: takes
+  the next staged batch, uploads it to its device, runs ``block.encode_batch_rows`` on that device's compute stream, packs the
+  per-block head and the first ``k`` words of every row into one buffer,
+  starts its copy into pinned host memory and records an event;
 * drain: waits for the event, refetches the words at a wider bucket on a
-  miss, checks every block (word capacity, the <=-banzai contract) and
-  files its payload under its sequence id.
+  miss (from the batch's device), checks every block (word capacity, the
+  <=-banzai contract) and files its payload under its sequence id.
 
 The caller's generator yields (block, payload) in input order.  The
 device work sits on a thread of its own because the BWT waits for the
 device once per doubling round (``ops/bwt.py``); RLE1 and staging on
 that thread would not overlap the device.  Bounded queues hold at most
-``_STAGED`` staged and ``_INFLIGHT`` fetched batches.
+``_STAGED`` staged and ``_INFLIGHT`` fetched batches.  With D device
+threads the producer ends the staged queue with D end markers, each
+device thread passes one on to the drain, and the drain stops at the
+D-th.  Several device threads in one process share the interpreter lock;
+one process per card (``parallel/multihost.py``) does not.
 
 A device failure raises out of the generator, and every thread is joined
 when the generator finishes, fails or is closed.  Blocks go to the host
@@ -46,7 +50,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ._device import resolve_device
 from .bitio import BitWriter
 from .constants import MAX_SYMS as S, SEGMENT_WIDTH, block_capacity
 from .container import write_stream_footer, write_stream_header
@@ -55,6 +58,7 @@ from .encoder_host import TINY_BLOCK, block_plan, hybrid_block
 from .huffman_host import banzai_wins, write_entropy
 from .rle1 import iter_blocks
 from .block import ROW_EXTRA, encode_batch_rows, nvtx_range, stage
+from .parallel.dp import Devices, block_devices
 from .payload import BlockPayload
 
 _CHUNK = 64           # row padding multiple (the JAX pipeline's MTF chunk)
@@ -73,7 +77,9 @@ class EncodeStats:
 
     ``device_blocks`` counts blocks encoded on the device path; the
     ``host_*`` fields count blocks that went to the host encoder, by rule
-    (``host_hybrid``: stolen by a hybrid worker).  ``refetches`` counts
+    (``host_hybrid``: stolen by a hybrid worker).  ``batches`` counts the
+    device batches, and ``device_batches`` those of each device thread, in
+    the order of ``parallel.dp.block_devices``.  ``refetches`` counts
     word fetches repeated at a wider bucket.  ``host_ms`` sums the wall
     time (ms) of each host step on its own thread, without waiting for
     the device.  When ``stage_ms`` is a dict, every device stage
@@ -85,6 +91,7 @@ class EncodeStats:
     host_banzai: int = 0
     host_hybrid: int = 0
     batches: int = 0
+    device_batches: list = field(default_factory=list)
     refetches: int = 0
     stage_ms: dict | None = None
     host_ms: dict = field(default_factory=dict)
@@ -241,18 +248,18 @@ def _streams(dev: torch.device):
 class _Scheduler:
     """The threads of one ``compress_blocks_iter`` call and their state."""
 
-    def __init__(self, blocks, level, dev, batch, hybrid_jobs, stats):
+    def __init__(self, blocks, level, devs, batch, hybrid_jobs, stats):
         self.blocks = blocks
-        self.dev = dev
+        self.devs = devs
         self.batch = batch
         self.stats = stats
         self.N = N = _padded_len(level)
         self.nseg = (N + 1 + SEGMENT_WIDTH - 1) // SEGMENT_WIDTH
         self.nwords = _nwords(N, self.nseg)
         self.seed_key = (level, N)
-        self.cuda = dev.type == "cuda"
-        if self.cuda:
-            self.compute, self.refetch_stream = _streams(dev)
+        self.cuda = devs[0].type == "cuda"
+        # Each device thread counts its batches in its own slot.
+        stats.device_batches += [0] * (len(devs) - len(stats.device_batches))
         self.hybrid_jobs = hybrid_jobs
         self.pool = _hybrid_pool(hybrid_jobs) if hybrid_jobs > 0 else None
 
@@ -272,19 +279,23 @@ class _Scheduler:
         self.k_lock = threading.Lock()
         self.k_recent = list(_K_SEED.get(self.seed_key, (256, 256, 256)))
         self.ms_lock = threading.Lock()
+        bodies = [("producer", self._producer, ())]
+        bodies += [(f"device{i}", self._device, (i,))
+                   for i in range(len(devs))]
+        bodies.append(("drain", self._drain, ()))
         self.threads = [
-            threading.Thread(target=self._guard, args=(fn,), daemon=True,
-                             name=f"banzai_tpu_torch-{fn.__name__[1:]}")
-            for fn in (self._producer, self._device, self._drain)
+            threading.Thread(target=self._guard, args=(fn, *args),
+                             daemon=True, name=f"banzai_tpu_torch-{name}")
+            for name, fn, args in bodies
         ]
 
     # -- plumbing ----------------------------------------------------------
 
-    def _guard(self, fn) -> None:
+    def _guard(self, fn, *args) -> None:
         """Thread body: any exception goes to the caller, who re-raises it,
         and stops the other threads."""
         try:
-            fn()
+            fn(*args)
         except BaseException as e:
             with self.avail:
                 self.errors.append(e)
@@ -319,7 +330,7 @@ class _Scheduler:
         to ``stats.host_ms[name]``."""
         t0 = time.perf_counter()
         try:
-            with nvtx_range(name, self.dev):
+            with nvtx_range(name, self.devs[0]):
                 yield
         finally:
             dt = 1e3 * (time.perf_counter() - t0)
@@ -397,38 +408,42 @@ class _Scheduler:
         with self.avail:
             self.total = self.nseq
             self.avail.notify_all()
-        self._put(self.staged, None)
+        for _ in self.devs:             # one end marker per device thread
+            if not self._put(self.staged, None):
+                return
 
     # -- device ------------------------------------------------------------
 
-    def _device(self) -> None:
+    def _device(self, i: int) -> None:
+        dev = self.devs[i]
         with ExitStack() as ctx:
             if self.cuda:
                 # The current device and stream are per thread.
-                ctx.enter_context(torch.cuda.device(self.dev))
-                ctx.enter_context(torch.cuda.stream(self.compute))
+                ctx.enter_context(torch.cuda.device(dev))
+                ctx.enter_context(torch.cuda.stream(_streams(dev)[0]))
             while True:
                 item = self._get(self.staged)
                 if item is None:
                     break
-                if not self._put(self.fetched, self._run_batch(*item)):
+                if not self._put(self.fetched, self._run_batch(dev, *item)):
                     return
+                self.stats.device_batches[i] += 1
         self._put(self.fetched, None)
 
-    def _run_batch(self, group, rows_h, pres):
-        """Upload, encode and start the fetch of one batch (on the compute
-        stream); returns the drain's work item."""
+    def _run_batch(self, dev, group, rows_h, pres):
+        """Upload, encode and start the fetch of one batch (on ``dev``'s
+        compute stream); returns the drain's work item."""
         B = len(group)
         sm = self.stats.stage_ms
-        with stage(sm, "upload", self.dev):
-            rows = rows_h.to(self.dev, non_blocking=True)
+        with stage(sm, "upload", dev):
+            rows = rows_h.to(dev, non_blocking=True)
         with self._step("dispatch"):
             words_d, nbits_d, ptrs_d, planb_d, splits_d, mlens_d = (
                 encode_batch_rows(rows, nseg=self.nseg, nwords=self.nwords,
                                   stage_ms=sm)
             )
         k = self._k_now()
-        with stage(sm, "fetch", self.dev):
+        with stage(sm, "fetch", dev):
             # One fetch: nbits, ptr, plan bits, RLE2 length, banzai split,
             # then words[:, :k], all as int32 (uint32 bit patterns).
             packed = torch.cat([
@@ -446,18 +461,22 @@ class _Scheduler:
                 host, done = packed, None
         # words_d stays referenced until the drain is done with the batch,
         # for a refetch on a bucket miss.
-        return group, pres, host, done, words_d, k
+        return dev, group, pres, host, done, words_d, k
 
     # -- drain -------------------------------------------------------------
 
     def _drain(self) -> None:
-        while True:
+        live = len(self.devs)           # device threads not yet finished
+        while live:
             item = self._get(self.fetched)
             if item is None:
-                return
+                if self.stop.is_set():
+                    return
+                live -= 1
+                continue
             self._drain_one(*item)
 
-    def _drain_one(self, group, pres, host, done, words_d, k) -> None:
+    def _drain_one(self, dev, group, pres, host, done, words_d, k) -> None:
         B = len(group)
         nwords = self.nwords
         with self._step("drain_fetch"):
@@ -481,7 +500,7 @@ class _Scheduler:
             if min(kmax, nwords) > k:
                 # Bucket miss: fetch again at the wider bucket.
                 self.stats.refetches += 1
-                words = self._refetch(words_d[:B, :want])
+                words = self._refetch(dev, words_d[:B, :want])
             self.stats.batches += 1
             for i, (seq, blk) in enumerate(group):
                 if int(nbits[i]) > nwords * 32:
@@ -500,14 +519,13 @@ class _Scheduler:
                         words=words[i], nbits=int(nbits[i]),
                     ), "device_blocks")
 
-    def _refetch(self, words: torch.Tensor) -> np.ndarray:
+    def _refetch(self, dev, words: torch.Tensor) -> np.ndarray:
         if not self.cuda:
             return words.numpy().view(np.uint32).copy()
         # The batch's event has completed, so the words are final; the
-        # copy runs on a stream of its own and waits only for itself.
-        with torch.cuda.device(self.dev), torch.cuda.stream(
-            self.refetch_stream
-        ):
+        # copy runs on a stream of its own on the batch's device and waits
+        # only for itself.
+        with torch.cuda.device(dev), torch.cuda.stream(_streams(dev)[1]):
             return words.cpu().numpy().view(np.uint32)
 
     # -- the caller's side ---------------------------------------------------
@@ -565,7 +583,7 @@ class _Scheduler:
 def compress_blocks_iter(
     block_iter,
     level: int = 9,
-    device: str | torch.device = "cuda",
+    device: Devices = "cuda",
     batch: int | None = None,
     hybrid_jobs: int | None = None,
     stats: EncodeStats | None = None,
@@ -573,7 +591,11 @@ def compress_blocks_iter(
     """Encode a stream of RLE1 blocks; yield (block, payload) in input
     order as payloads complete.
 
-    ``batch``: blocks per device batch (default by level).
+    ``device`` names the devices, one device thread each, as
+    ``parallel.dp.block_devices`` resolves them: ``"cuda"`` is the current
+    card; a sequence such as ``["cuda:0", "cuda:1"]`` is exactly those
+    devices.
+    ``batch``: blocks per device batch on each device (default by level).
     ``hybrid_jobs`` (default BANZAI_HYBRID_JOBS, else 0): host worker
     processes that encode stolen blocks beside the device, byte-identical
     at any count.  They are spawned, so a script that asks for them
@@ -581,14 +603,14 @@ def compress_blocks_iter(
     ``stats``, when given, receives the route counts and host timings.
     The threads start at the first ``next`` and are joined when the
     generator ends, raises or is closed."""
-    dev = resolve_device(device)
+    devs = block_devices(device)
     if batch is None:
         batch = _batch_for_level(level)
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     if hybrid_jobs is None:
         hybrid_jobs = int(os.environ.get("BANZAI_HYBRID_JOBS", "0"))
-    sched = _Scheduler(block_iter, level, dev, batch, hybrid_jobs,
+    sched = _Scheduler(block_iter, level, devs, batch, hybrid_jobs,
                        stats if stats is not None else EncodeStats())
     return sched.run()
 
@@ -596,7 +618,7 @@ def compress_blocks_iter(
 def compress_blocks_payloads(
     data: bytes,
     level: int = 9,
-    device: str | torch.device = "cuda",
+    device: Devices = "cuda",
     stats: EncodeStats | None = None,
     *,
     batch: int | None = None,
@@ -612,13 +634,14 @@ def compress_blocks_payloads(
 def compress(
     data: bytes,
     level: int = 9,
-    device: str | torch.device = "cuda",
+    device: Devices = "cuda",
     stats: EncodeStats | None = None,
     *,
     batch: int | None = None,
     hybrid_jobs: int | None = None,
 ) -> bytes:
-    """Encode ``data`` into a .bz2 stream on ``device``."""
+    """Encode ``data`` into a .bz2 stream on ``device`` (as in
+    ``compress_blocks_iter``)."""
     bw = BitWriter()
     write_stream_header(bw, level)
     stream_crc = 0

@@ -1,12 +1,15 @@
-"""Per-block statistics for the CLI's ``--verbose`` report.
+"""Per-block statistics and stage timers.
 
-Copy of ``BlockStats`` and ``EncodeReport`` from
-``banzai_tpu/profiling.py``, so the port imports nothing of the JAX
-package; the report's text is the original's.
+Copy of ``banzai_tpu/profiling.py``, so the port imports nothing of the
+JAX package; the report's text is the original's.  ``encode_report``'s
+``backend="device"`` is the original's ``"jax"``: the port's device
+pipeline on ``device``.
 """
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 
@@ -56,3 +59,57 @@ class EncodeReport:
         for k, v in self.stage_seconds.items():
             lines.append(f"  [{k}] {v * 1000:.1f} ms")
         return "\n".join(lines)
+
+
+def encode_report(
+    data: bytes, level: int = 9, backend: str = "numpy", device="cuda",
+) -> EncodeReport:
+    """Encode ``data`` collecting per-block stats: with the host encoder
+    (``backend="numpy"``) or the device pipeline on ``device``
+    (``backend="device"``)."""
+    from .rle1 import split_blocks
+
+    if backend not in ("numpy", "device"):
+        raise ValueError(f"backend must be 'numpy' or 'device', got "
+                         f"{backend!r}")
+    report = EncodeReport(level=level)
+    t0 = time.perf_counter()
+    blocks = split_blocks(data, level)
+    report.stage_seconds["rle1+split"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if backend == "device":
+        from .pipeline import compress_blocks_payloads
+
+        payloads = compress_blocks_payloads(data, level, device)
+        for i, (blk, p) in enumerate(zip(blocks, payloads, strict=True)):
+            report.blocks.append(
+                BlockStats(i, blk.consumed, len(blk.output), p.nbits,
+                           p.ptr, p.crc)
+            )
+    else:
+        from .bitio import BitWriter
+        from .encoder_host import encode_block
+
+        for i, blk in enumerate(blocks):
+            bw = BitWriter()
+            ptr, payload_bits = encode_block(bw, blk.output, blk.crc)
+            # Same numbers as the device path (BlockStats contract:
+            # entropy payload bits, real ptr).
+            report.blocks.append(
+                BlockStats(i, blk.consumed, len(blk.output),
+                           payload_bits, ptr, blk.crc)
+            )
+    report.stage_seconds["encode"] = time.perf_counter() - t0
+    return report
+
+
+@contextmanager
+def stage_timer(report: EncodeReport, name: str):
+    """Add the enclosed block's wall time (s) to
+    ``report.stage_seconds[name]``."""
+    t0 = time.perf_counter()
+    yield
+    report.stage_seconds[name] = (
+        report.stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+    )

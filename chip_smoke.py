@@ -41,15 +41,31 @@ Phases, one line each or more:
    a subprocess, exit 0 and the same bytes; then the CLI's ``main`` in
    this process, to count its launches;
 7. hybrid: ``compress(..., hybrid_jobs=2)``, the same bytes, and at least
-   one block encoded by a host worker.
+   one block encoded by a host worker;
+8. parallel: block data parallelism, ``compress(..., device=["cuda:0"])``
+   (one device thread) and ``device=["cuda:0", "cuda:0"]`` (two device
+   threads on the one card), and with more than one card a list of every
+   card, ``["cuda:0", "cuda:1", ...]``; each must give the
+   same bytes, and its wall and batches per device thread are printed,
+   then 5 timed runs of each in turns.  Then the multi-process encode:
+   two ranks of ``python -m banzai_tpu_torch.parallel._worker`` in a gloo
+   group on 127.0.0.1, rank r on ``cuda:{r % device count}`` (here both
+   share the one card), through ``encode_multihost_path`` on the same
+   input; rank 0's stream must equal ``compress``'s and decode with bz2,
+   and each rank must have launched K1-K3.  Printed: the wall, each
+   rank's start-up (spawn to group joined) split into the interpreter,
+   the torch import, the card's context and kernel library, and the
+   group's rendezvous, its encode, and the report.
 
-Every path of phases 4-7 runs with the launch counts set to 0 just
-before it and read just after, and fails unless K1-K3 launched.  A
-launch is one call of a kernel's entry point (K4's runs three kernels).
-K4's ``launches`` are those of its own phase; its ``main_path_launches``
-are read from the compress run of phase 4.  The
-line before the last is the kernels' JSON; the last line is the result
-JSON.  Any failure raises and exits non-zero.
+Every path of phases 4-8 runs with the launch counts set to 0 just
+before it and read just after (each rank counts in its own process),
+and fails unless K1-K3 launched.  A launch is one call of a kernel's
+entry point (K4's runs three kernels).  Each kernel's ``launches`` are
+those of the compress run of phase 4, and ``launches_by_path`` those of
+each path of phases 4 and 8; K4's ``launches`` are those of its own
+phase, its ``main_path_launches`` those of phase 4.  The line before the
+last is the kernels' JSON; the last line is the result JSON.  Any
+failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -267,6 +283,92 @@ def profile_busy(fn):
     kernels_ms, n_kernels = union_ms(("kernel",))
     all_ms, _ = union_ms(("kernel", "gpu_memcpy", "gpu_memset"))
     return wall, kernels_ms, all_ms, n_kernels
+
+
+def parallel_phase(data: bytes, out: bytes) -> dict:
+    """Phase 8: block data parallelism in this process, then two ranks of
+    the multi-process encode.  Returns each path's launches."""
+    import banzai_tpu_torch
+    from banzai_tpu_torch.parallel._worker import run_ranks
+    from banzai_tpu_torch.pipeline import EncodeStats
+
+    ndev = torch.cuda.device_count()
+    runs = {"dp1": ["cuda:0"], "dp2": ["cuda:0", "cuda:0"]}
+    if ndev > 1:
+        runs["dp_all"] = [f"cuda:{i}" for i in range(ndev)]
+    launches_of = {}
+    for label, devices in runs.items():
+        stats = EncodeStats()
+        t0 = time.perf_counter()
+        got, launches = counted(label, lambda: banzai_tpu_torch.compress(
+            data, LEVEL, device=devices, stats=stats))
+        wall = time.perf_counter() - t0
+        threads = len(devices)
+        if got != out:
+            raise AssertionError(f"{label}: stream differs from compress")
+        if len(stats.device_batches) != threads:
+            raise AssertionError(f"{label}: {stats.device_batches} batches "
+                                 f"per thread, want {threads} threads")
+        launches_of[label] = launches
+        print(f"parallel {label} (device={devices!r}, "
+              f"{threads} device threads): equal to compress; "
+              f"{len(data) / wall / 1e6:.3f} MB/s wall ({wall:.3f} s); "
+              f"batches per device thread {stats.device_batches}; launches "
+              f"{launches}", flush=True)
+    walls = {label: [] for label in runs}
+    for _ in range(5):
+        for label, devices in runs.items():
+            t0 = time.perf_counter()
+            banzai_tpu_torch.compress(data, LEVEL, device=devices)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+    med = {label: statistics.median(w) for label, w in walls.items()}
+    print("parallel timing, 5 runs each in turns: " + "; ".join(
+        f"{label} median {m:.4f} s = {len(data) / m / 1e6:.2f} MB/s "
+        f"(min {min(walls[label]):.4f}, max {max(walls[label]):.4f} s)"
+        for label, m in med.items()), flush=True)
+
+    devices = [f"cuda:{r % ndev}" for r in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "smoke.bin")
+        dst = os.path.join(tmp, "smoke.bin.bz2")
+        rep = os.path.join(tmp, "report.json")
+        with open(src, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        lines = run_ranks(src, dst, LEVEL, devices, report_path=rep,
+                          timeout=600)
+        wall = time.perf_counter() - t0
+        with open(dst, "rb") as f:
+            got = f.read()
+        with open(rep) as f:
+            report = json.load(f)
+    if got != out:
+        raise AssertionError(f"2 ranks: rank 0's stream differs from "
+                             f"compress ({len(got)} vs {len(out)} bytes)")
+    if bz2.decompress(got) != data:
+        raise AssertionError("2 ranks: bz2 round trip failed")
+    for ln in lines:
+        missing = [k for k in MAIN_KERNELS if ln["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"rank {ln['rank']} never launched "
+                                 f"{missing}")
+        launches_of[f"rank{ln['rank']}"] = ln["launches"]
+    # Per rank, s: spawn to main (interpreter), main to torch imported,
+    # to the card's context and kernel library, to the group joined (it
+    # waits for the slowest rank), then the encode.
+    steps = ("spawned", "main", "torch", "device", "group", "done")
+    split = [{f"{a}-{b}": round(ln["at"][b] - ln["at"][a], 3)
+              for a, b in zip(steps, steps[1:])} for ln in lines]
+    startup = [round(ln["at"]["group"] - ln["at"]["spawned"], 3)
+               for ln in lines]
+    print(f"multi-process (2 ranks, gloo on 127.0.0.1, devices {devices}): "
+          f"rank 0's stream equal to compress, bz2 round trip ok; wall "
+          f"{wall:.3f} s from spawn to exit; start-up per rank (spawn to "
+          f"group joined) {startup} s; steps per rank {json.dumps(split)}; "
+          f"launches {[ln['launches'] for ln in lines]}; report "
+          f"{json.dumps(report)}", flush=True)
+    return launches_of
 
 
 def main() -> int:
@@ -528,6 +630,7 @@ def main() -> int:
     out, launches = counted("compress", lambda: banzai_tpu_torch.compress(
         data, LEVEL, device="cuda", stats=stats))
     wall = time.perf_counter() - t0
+    path_launches = {"compress": launches}
     for k in kernels:
         if k["name"] in MAIN_KERNELS:
             k["launches"] = launches[k["name"]]
@@ -639,6 +742,12 @@ def main() -> int:
           f"{hstats.host_hybrid} blocks stolen, {hstats.device_blocks} on "
           f"the device; {hwall:.3f} s with the workers' start; launches "
           f"{launches}", flush=True)
+
+    # -- 8. parallel ----------------------------------------------------------
+    path_launches.update(parallel_phase(data, out))
+    for k in kernels:
+        k["launches_by_path"] = {p: n.get(k["name"], 0)
+                                 for p, n in path_launches.items()}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

@@ -223,3 +223,34 @@ def test_repeated_compress_reuses_device_memory(cuda):
         banzai_tpu_torch.compress(data, 1, "cuda")
     assert pipeline._streams(torch.device("cuda", 0)) == streams
     assert torch.cuda.memory_reserved() < 2 * reserved
+
+
+MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words")
+
+
+def test_two_device_threads_on_one_card_match_host(cuda):
+    data = random.Random(6).randbytes(300_000) + b"xyz" * 40_000
+    _build.LAUNCHES.clear()
+    stats = EncodeStats()
+    out = banzai_tpu_torch.compress(data, 1, ["cuda:0", "cuda:0"], stats,
+                                    batch=1)
+    assert out == host_compress(data, 1, jobs=1)
+    assert bz2.decompress(out) == data
+    assert len(stats.device_batches) == 2
+    assert sum(stats.device_batches) == stats.batches == stats.device_blocks
+    assert all(_build.LAUNCHES[k] > 0 for k in MAIN_KERNELS)
+
+
+def test_two_ranks_on_the_card_match_compress(cuda, tmp_path):
+    from banzai_tpu_torch.parallel._worker import run_ranks
+
+    data = random.Random(7).randbytes(250_000) + b"abcde" * 30_000
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bz2"
+    src.write_bytes(data)
+    n = torch.cuda.device_count()
+    lines = run_ranks(str(src), str(dst), 1,
+                      [f"cuda:{r % n}" for r in range(2)], timeout=600)
+    assert dst.read_bytes() == banzai_tpu_torch.compress(data, 1, "cuda")
+    assert bz2.decompress(dst.read_bytes()) == data
+    for ln in lines:
+        assert all(ln["launches"].get(k, 0) > 0 for k in MAIN_KERNELS), ln
