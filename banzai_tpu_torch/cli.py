@@ -1,17 +1,22 @@
 """bnz-compatible CLI of the port: ``python -m banzai_tpu_torch.cli``.
 
 Counterpart of ``banzai_tpu/cli.py`` with the same flags, default output
-names, deletion policy and exit codes 0/1/2/3, plus ``--device
-cuda|cpu`` (default ``cuda``) in place of the JAX CLI's backend
-selection by environment.  The encode streams through the port's
-bounded-memory ``encode()``.  ``--device cuda`` without a CUDA device
-exits 3 with one line before any output is opened; a failure during the
-encode exits 3 and removes the partial output file.
+names, deletion policy and exit codes 0/1/2/3, plus ``--device`` (default
+``cuda``, the current card) in place of the JAX CLI's backend selection
+by environment: ``cuda``, ``cuda:N``, ``cpu``, or a comma-separated list
+of one type such as ``cuda:0,cuda:1`` or ``cpu,cpu``, one device thread
+per entry (``parallel.dp.block_devices``; where the JAX CLI runs on
+every local device, several cards are named here).  A malformed value
+exits 1; a card that is not there exits 3 with one line, both before any
+output is opened.  The encode streams through the port's bounded-memory
+``encode()``; a failure during it exits 3 and removes the partial output
+file.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import sys
 
 # Exit codes of the reference's bnz (as ``banzai_tpu/cli.py``).
@@ -20,7 +25,7 @@ EXIT_USAGE = 1
 EXIT_INPUT_IO = 2
 EXIT_OUTPUT_IO = 3
 
-_DEVICES = ("cuda", "cpu")
+_DEVICE = re.compile(r"cuda(:\d+)?|cpu")
 
 _HELP = """usage: python -m banzai_tpu_torch.cli [flags] [--output <path>] <input|->
 
@@ -36,7 +41,9 @@ flags:
   -v, --verbose    per-block statistics to stderr
   --banzai-compat  reproduce the reference banzai's output byte-exactly
                    (quirk-exact model; larger and slower than the default)
-      --device D   cuda (default) or cpu (the kernels' plain versions)
+      --device D   cuda (default: the current card), cuda:N, cpu (the
+                   kernels' plain versions), or a list of one type such
+                   as cuda:0,cuda:1 (one device thread each)
       --output P   write to P
       --help       this message
       --info       about this program
@@ -80,6 +87,17 @@ class _TaggedReader:
             return self._f.read(n)
         except OSError as e:
             raise _InputIOError(str(e)) from e
+
+
+def _device_list(value: str) -> list[str] | None:
+    """The entries of a ``--device`` value (``cuda``, ``cuda:N``, ``cpu``
+    or a comma-separated list of one type), or None if it is malformed."""
+    parts = value.split(",")
+    if not all(_DEVICE.fullmatch(p) for p in parts):
+        return None
+    if len({p.split(":")[0] for p in parts}) > 1:
+        return None
+    return parts
 
 
 def parse_args(argv: list[str]) -> Invocation | int:
@@ -150,9 +168,9 @@ def parse_args(argv: list[str]) -> Invocation | int:
     if expect is not None:
         print(f"bnz: --{expect} requires a value", file=sys.stderr)
         return EXIT_USAGE
-    if inv.device not in _DEVICES:
-        print(f"bnz: --device must be one of {', '.join(_DEVICES)}",
-              file=sys.stderr)
+    if _device_list(inv.device) is None:
+        print("bnz: --device must be cuda, cuda:N, cpu or a comma-separated "
+              "list of one of them", file=sys.stderr)
         return EXIT_USAGE
     if inv.input is None:
         print("bnz: no input specified (use - for stdin)", file=sys.stderr)
@@ -168,12 +186,13 @@ def main(argv: list[str] | None = None) -> int:
         return inv
 
     from . import encode
-    from ._device import resolve_device
+    from .parallel.dp import block_devices
 
+    devices = _device_list(inv.device)
     if not inv.banzai_compat:
         # A device that cannot run fails here, before any output exists.
         try:
-            resolve_device(inv.device)
+            devices = block_devices(devices)
         except RuntimeError as e:
             print(f"bnz: {e}", file=sys.stderr)
             return EXIT_OUTPUT_IO
@@ -249,7 +268,7 @@ def main(argv: list[str] | None = None) -> int:
                 banzai_compress(_TaggedReader(reader).read(), inv.level)
             )
         else:
-            encode(_TaggedReader(reader), writer, inv.level, inv.device,
+            encode(_TaggedReader(reader), writer, inv.level, devices,
                    report=report)
         if not close_writer:
             writer.flush()

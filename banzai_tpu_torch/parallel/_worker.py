@@ -5,9 +5,11 @@
 
 Run once per rank.  Joins a gloo process group at ``127.0.0.1:<port>``
 (``nproc`` ranks), encodes ``<input>`` with
-``multihost.encode_multihost_path`` on ``--device`` (default one card
-per rank, ``cuda:<rank % cards>``), and rank 0 writes the stream to ``<output>`` and, with ``--report``, the
-report as JSON.  Every rank prints one JSON line: its rank, devices,
+``multihost.encode_multihost_path`` on ``--device`` (``cuda``,
+``cuda:N``, ``cpu`` or a comma-separated list of one type such as
+``cuda:0,cuda:1``, one device thread each; default one card per rank,
+``cuda:<rank % cards>``), and rank 0 writes the stream to ``<output>``
+and, with ``--report``, the report as JSON.  Every rank prints one JSON line: its rank, devices,
 the kernel launches of its encode, and under ``at`` the epoch times at
 which ``main`` started and torch was imported, the devices' contexts and
 the kernel library were loaded, the group was joined and the encode was
@@ -65,7 +67,7 @@ def main(argv: list[str] | None = None) -> int:
     at["torch"] = time.time()
     if args.device is None:
         args.device = default_device(args.rank)
-    devs = block_devices(args.device)
+    devs = block_devices(args.device.split(","))
     if devs[0].type == "cpu":
         torch.set_num_threads(2)
     else:
@@ -82,7 +84,7 @@ def main(argv: list[str] | None = None) -> int:
         _build.LAUNCHES.clear()
         report: dict = {}
         out = encode_multihost_path(args.input, args.level, report=report,
-                                    device=args.device)
+                                    device=devs)
         at["done"] = time.time()
         if args.rank == 0:
             with open(args.output, "wb") as f:

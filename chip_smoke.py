@@ -55,14 +55,25 @@ Phases, one line each or more:
    and each rank must have launched K1-K3.  Printed: the wall, each
    rank's start-up (spawn to group joined) split into the interpreter,
    the torch import, the card's context and kernel library, and the
-   group's rendezvous, its encode, and the report.
+   group's rendezvous, its encode, and the report;
+9. spbwt: one block's BWT sharded lane-wise over D = 1, 2 and 4 shards,
+   all on ``cuda:0`` (``parallel.spbwt.bwt_rotations_sharded``, a
+   capability that no encode path calls), on two level-9 device blocks:
+   the first, and the other one on which ``ops.bwt.bwt_rotations``
+   needs the most doubling rounds (counted as its sorts; the sharded BWT
+   at D = 1 must stop at the same coverage on every block).  Bytes and
+   ``ptr`` must equal ``ops.bwt.bwt_rotations`` on the [1, N] row.
+   Printed per D: the median wall of 3 calls, the rounds, the
+   call's peak device memory and the largest tensor it made, in lanes.
+   The machine has one card, so behaviour across cards is not checked.
 
 Every path of phases 4-8 runs with the launch counts set to 0 just
 before it and read just after (each rank counts in its own process),
 and fails unless K1-K3 launched.  A launch is one call of a kernel's
 entry point (K4's runs three kernels).  Each kernel's ``launches`` are
 those of the compress run of phase 4, and ``launches_by_path`` those of
-each path of phases 4 and 8; K4's ``launches`` are those of its own
+each path of phases 4, 8 and 9 (phase 9 launches none: its work is
+``torch.sort``, scans and copies); K4's ``launches`` are those of its own
 phase, its ``main_path_launches`` those of phase 4.  The line before the
 last is the kernels' JSON; the last line is the result JSON.  Any
 failure raises and exits non-zero.
@@ -85,6 +96,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 ROOT = Path(__file__).resolve().parent
 LEVEL = 9
@@ -369,6 +382,100 @@ def parallel_phase(data: bytes, out: bytes) -> dict:
           f"launches {[ln['launches'] for ln in lines]}; report "
           f"{json.dumps(report)}", flush=True)
     return launches_of
+
+
+class SortCount(TorchDispatchMode):
+    """Counts the sorts the operations run (ops/bwt: one a round)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += func.overloadpacket is torch.ops.aten.sort
+        return func(*args, **(kwargs or {}))
+
+
+class LargestTensor(TorchDispatchMode):
+    """Records the numel of the largest tensor any operation makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.numel = max(self.numel, t.numel())
+        return out
+
+
+def spbwt_phase(outputs: list[np.ndarray], N: int, dev: str) -> dict:
+    """Phase 9: ``bwt_rotations_sharded`` at D = 1, 2 and 4 shards on
+    ``dev`` against ``ops.bwt.bwt_rotations`` on two of the device blocks'
+    RLE1 outputs.  Returns the launches of the sharded calls."""
+    from banzai_tpu_torch import _build
+    from banzai_tpu_torch.ops.bwt import bwt_rotations
+    from banzai_tpu_torch.parallel.spbwt import bwt_rotations_sharded
+
+    def padded(out: np.ndarray) -> torch.Tensor:
+        block = np.zeros(N, np.uint8)
+        block[: len(out)] = out
+        return torch.from_numpy(block).to(dev)
+
+    # Rounds per block of ops/bwt.bwt_rotations on its [1, N] row (one sort
+    # a round); the sharded BWT at D = 1 must stop at the same k = 2^rounds.
+    rounds = []
+    for i, o in enumerate(outputs):
+        with SortCount() as sorts:
+            bwt_rotations(padded(o)[None], torch.tensor([len(o)]))
+        rounds.append(sorts.count)
+        k = bwt_rotations_sharded(padded(o), len(o), devices=[dev],
+                                  debug_rounds=True)[2]
+        if k != 1 << sorts.count:
+            raise AssertionError(f"spbwt block {i} stops at k = {k}, ops.bwt "
+                                 f"after {sorts.count} rounds")
+    hard = max(range(1, len(outputs)), key=lambda i: rounds[i])
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    for i, label in ((0, "first"), (hard, "most rounds")):
+        block, n = padded(outputs[i]), len(outputs[i])
+        want_bwt, want_ptr = bwt_rotations(block[None], torch.tensor([n]))
+        want = (want_bwt[0, :n].cpu(), int(want_ptr[0]))
+        for D in (1, 2, 4):
+            devices = [dev] * D
+            got, ptr, k = bwt_rotations_sharded(block, n, devices=devices,
+                                                debug_rounds=True)
+            if not (torch.equal(torch.cat(got)[:n].cpu(), want[0])
+                    and int(ptr) == want[1]):
+                raise AssertionError(f"spbwt block {i} at D = {D}: bytes or "
+                                     f"ptr differ from ops.bwt")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bwt_rotations_sharded(block, n, devices=devices)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            bwt_rotations_sharded(block, n, devices=devices)
+            peak = torch.cuda.max_memory_allocated() - base
+            with LargestTensor() as largest:
+                bwt_rotations_sharded(block, n, devices=devices)
+            print(f"spbwt block {i} ({label}, n = {n}, N = {N}) D = {D} on "
+                  f"{devices} (one card: across cards not verified): bytes "
+                  f"and ptr equal to ops.bwt; wall median "
+                  f"{statistics.median(walls):.4f} s of 3 (min "
+                  f"{min(walls):.4f}, max {max(walls):.4f}); k = {k}, "
+                  f"{k.bit_length() - 1} rounds (ops.bwt {rounds[i]}); "
+                  f"peak device memory of the call {peak / 1e6:.1f} MB; "
+                  f"largest tensor "
+                  f"{largest.numel} lanes (shard m = {N // D})", flush=True)
+    torch.cuda.synchronize()
+    return dict(_build.LAUNCHES)
 
 
 def main() -> int:
@@ -745,6 +852,10 @@ def main() -> int:
 
     # -- 8. parallel ----------------------------------------------------------
     path_launches.update(parallel_phase(data, out))
+
+    # -- 9. spbwt: one block's BWT over D shards ------------------------------
+    path_launches["spbwt"] = spbwt_phase([b.output for b in full], N,
+                                         "cuda:0")
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in path_launches.items()}

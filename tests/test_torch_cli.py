@@ -35,8 +35,13 @@ ROOT = Path(__file__).resolve().parents[1]
     (["-c", "-"], dict(input="-", stdout=True)),
     (["--device", "cpu", "-v", "--banzai-compat", "x"],
      dict(device="cpu", verbose=True, banzai_compat=True)),
+    (["--device", "cuda:1", "x"], dict(device="cuda:1")),
+    (["--device", "cuda:0,cuda:1,cuda", "x"],
+     dict(device="cuda:0,cuda:1,cuda")),
+    (["--device", "cpu,cpu", "x"], dict(device="cpu,cpu")),
 ], ids=["defaults", "combined", "keep_then_remove", "remove_then_keep",
-        "alias_output", "end_of_flags", "stdin", "device"])
+        "alias_output", "end_of_flags", "stdin", "device", "device_index",
+        "device_cards", "device_cpus"])
 def test_parse(argv, want):
     inv = parse_args(argv)
     for name, value in want.items():
@@ -214,3 +219,41 @@ def test_fuzz_driver_runs_clean(tmp_path, monkeypatch, capsys):
     assert fuzz.main(["6", "--device", "cpu", "--seed", "5"]) == 0
     assert "6 iterations clean" in capsys.readouterr().out
     assert not (tmp_path / "fuzz_fail.bin").exists()
+
+
+def test_cli_device_list_gives_the_same_stream(tmp_path):
+    """--device cpu,cpu runs two device threads: the stream is --device
+    cpu's and the host encoder's."""
+    payload = random.Random(3).randbytes(150_000) + b"ab" * 80_000
+    outs = []
+    for i, device in enumerate(["cpu", "cpu,cpu"]):
+        src = tmp_path / f"in{i}.bin"
+        src.write_bytes(payload)
+        assert cli.main(["-k", "-1", "--device", device, str(src)]) == EXIT_OK
+        outs.append((tmp_path / f"in{i}.bin.bz2").read_bytes())
+    assert outs[0] == outs[1] == host_compress(payload, 1, jobs=1)
+
+
+@pytest.mark.parametrize("value", [
+    "gpu", "cuda:x", "cuda:", "cpu,", ",cpu", "cpu,,cpu", "cpu:0", "cuda:-1",
+    "cpu,cuda:0", "cuda:0,cpu", "", "CUDA",
+])
+def test_cli_malformed_device_exits_usage_no_output(tmp_path, capsys, value):
+    src = tmp_path / "m.txt"
+    src.write_bytes(b"malformed device " * 100)
+    assert cli.main(["-1", "--device", value, str(src)]) == EXIT_USAGE
+    assert "--device must be" in capsys.readouterr().err
+    assert src.exists() and not (tmp_path / "m.txt.bz2").exists()
+
+
+def test_cli_card_past_the_visible_ones_exits_3(tmp_path, monkeypatch,
+                                                capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    src = tmp_path / "n.txt"
+    src.write_bytes(b"no such card " * 100)
+    assert cli.main(["-1", "--device", "cuda:0,cuda:3", str(src)]) == (
+        EXIT_OUTPUT_IO)
+    err = capsys.readouterr().err
+    assert err.count("\n") == 1 and "only 1 CUDA devices" in err
+    assert src.exists() and not (tmp_path / "n.txt.bz2").exists()

@@ -254,3 +254,29 @@ def test_two_ranks_on_the_card_match_compress(cuda, tmp_path):
     assert bz2.decompress(dst.read_bytes()) == data
     for ln in lines:
         assert all(ln["launches"].get(k, 0) > 0 for k in MAIN_KERNELS), ln
+
+
+def test_spbwt_two_shards_on_the_card_match_bwt(cuda):
+    """One block's BWT over 2 shards on the card: the bytes and ptr of the
+    one-device BWT on the same card and of the NumPy oracle."""
+    from banzai_tpu_torch.oracle import numpy_bwt
+    from banzai_tpu_torch.ops.bwt import bwt_rotations
+    from banzai_tpu_torch.parallel.spbwt import bwt_rotations_sharded
+
+    rng = np.random.default_rng(8)
+    data = np.concatenate([
+        rng.integers(0, 4, 60_000), np.resize([7, 7, 7, 7, 9], 40_000),
+        rng.integers(0, 256, 30_003)]).astype(np.uint8)
+    n, N = len(data), 1 << 17
+    block = np.zeros(N, np.uint8)
+    block[:n] = data
+    dev_block = torch.from_numpy(block).to(cuda)
+    got, ptr = bwt_rotations_sharded(dev_block, n, devices=["cuda:0"] * 2)
+    assert [s.device.type for s in got] == ["cuda", "cuda"]
+    want, want_ptr = bwt_rotations(dev_block[None],
+                                   torch.tensor([n], device=cuda))
+    torch.testing.assert_close(torch.cat(got)[:n], want[0, :n], rtol=0,
+                               atol=0)
+    ref_bwt, ref_ptr = numpy_bwt(data)
+    assert int(ptr) == int(want_ptr[0]) == ref_ptr
+    np.testing.assert_array_equal(torch.cat(got)[:n].cpu().numpy(), ref_bwt)

@@ -71,6 +71,15 @@ def test_four_ranks_report(tmp_path, corpus, jax_stream):
     assert report["modeled_single_host_s"] > 0
 
 
+def test_a_rank_with_a_device_list(tmp_path, corpus, jax_stream):
+    """--device cpu,cpu: rank 0 runs two device threads, rank 1 one."""
+    src, dst = tmp_path / "input.bin", tmp_path / "multi.bz2"
+    src.write_bytes(corpus)
+    lines = run_ranks(str(src), str(dst), 1, ["cpu,cpu", "cpu"], timeout=300)
+    assert [ln["device"] for ln in lines] == [["cpu", "cpu"], ["cpu"]]
+    assert dst.read_bytes() == jax_stream
+
+
 def test_a_failed_rank_fails_the_run(tmp_path, corpus):
     """Rank 1 asks for a card this machine lacks: the run raises with its
     error, and rank 0 is killed rather than left waiting."""

@@ -232,6 +232,14 @@ def test_block_devices_resolution(monkeypatch):
     assert block_devices("cuda") == [c(0)]
 
 
+def test_block_devices_past_the_visible_cards_raise(monkeypatch):
+    _fake_cards(monkeypatch, 2)
+    with pytest.raises(RuntimeError, match="only 2 CUDA devices"):
+        block_devices(["cuda:0", "cuda:2"])
+    with pytest.raises(RuntimeError, match="only 2 CUDA devices"):
+        block_devices("cuda:7")
+
+
 @pytest.mark.parametrize("cards, rank, want", [
     (1, 0, "cuda:0"), (1, 1, "cuda:0"), (4, 2, "cuda:2"), (4, 5, "cuda:1"),
     (0, 0, "cuda"),

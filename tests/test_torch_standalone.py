@@ -62,11 +62,13 @@ print(json.dumps({{"loaded": loaded()}}))
     "banzai_tpu_torch",
     "banzai_tpu_torch.encoder_host",
     "banzai_tpu_torch.cli",
+    "banzai_tpu_torch.parallel",
 ])
 def test_host_side_imports_no_torch(module):
     """Spawned hybrid workers unpickle ``encoder_host`` functions, which
     imports the package's ``__init__``: neither may pull in torch (or
-    the JAX package)."""
+    the JAX package).  Nor may ``parallel``: a ``_worker`` rank stamps
+    its start before it imports torch."""
     code = _LOADED + f"""
 import importlib
 importlib.import_module({module!r})
