@@ -1,0 +1,10 @@
+"""ms/MB: the BWT stage (``stage_ms["bwt"]``, device synchronised before
+and after) per input MB, in the part of the traced window with
+``EncodeStats(stage_ms={})``."""
+
+
+def read(run):
+    p = run.parts.get("stages")
+    if p is None or not p.mb or "bwt" not in (p.stats.stage_ms or {}):
+        return None
+    return p.stats.stage_ms["bwt"] / p.mb
