@@ -16,8 +16,8 @@ workers, which unpickle ``encoder_host`` functions, stay torch-free.
 
 Public API:
 
-* ``compress(data, level=9, device="cuda") -> bytes``
-* ``encode(reader, writer, level=9, device="cuda") -> int``
+* ``compress(data, level=9, device="cuda", stats=None) -> bytes``
+* ``encode(reader, writer, level=9, device="cuda", stats=None) -> int``
 * ``encode_file(input_path, output_path, level=9, device="cuda")``
 
 ``device`` is explicit: ``"cuda"`` without a CUDA device raises, and
@@ -64,8 +64,9 @@ def compress(
     hybrid_jobs: int | None = None,
 ) -> bytes:
     """One-shot encode of ``data`` at ``level`` (block size level*100kB)
-    on ``device``.  ``stats``, when given, receives the block route counts
-    and host timings (and the stage times, if its ``stage_ms`` is a dict).
+    on ``device``.  ``stats`` (a ``pipeline.EncodeStats``), when given,
+    receives the block route counts, the host and device timings, and the
+    synchronised stage times if its ``stage_ms`` is a dict.
     ``batch`` and ``hybrid_jobs`` are as in
     ``pipeline.compress_blocks_iter``."""
     from .pipeline import compress as _compress
@@ -82,6 +83,7 @@ def encode(
     device: str | Sequence[str] = "cuda",
     span_bytes: int = 32 * 1024 * 1024,
     report=None,
+    stats: EncodeStats | None = None,
 ) -> int:
     """Stream-encode ``reader`` into ``writer`` with bounded memory;
     returns the number of bytes written.
@@ -92,9 +94,9 @@ def encode(
     tail are all that is carried from span to span.  Each finished block
     is written out at once.  When ``report`` (a
     ``profiling.EncodeReport``) is given, per-block stats are
-    appended to it as blocks are written.  ``device`` is as in
-    ``compress``; the devices are resolved before anything is read or
-    written."""
+    appended to it as blocks are written.  ``device`` and ``stats`` are
+    as in ``compress``; the devices are resolved before anything is read
+    or written."""
     from .bitio import BitWriter
     from .container import write_stream_footer, write_stream_header
     from .crc32 import combine_stream_crc
@@ -137,7 +139,8 @@ def encode(
                 yield blk
             tail = data[consumed:]
 
-    for blk, p in compress_blocks_iter(span_blocks(), level, devs):
+    for blk, p in compress_blocks_iter(span_blocks(), level, devs,
+                                       stats=stats):
         stream_crc = combine_stream_crc(stream_crc, p.crc)
         p.write(bw)
         if report is not None:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import threading
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 
 import torch
 
@@ -19,35 +19,42 @@ from .ops.bwt import bwt_rotations
 from .ops.huffman import plan_entropy
 from .ops.mtf import mtf_indices
 from .ops.stream_kernels import pack_words_batch, rle2_expand_batch
+from .spans import mark, span
 
 # Packed-row layout of one batch upload: N block bytes, 256 presence
 # bytes, 3 little-endian length bytes, 1 spare.
 ROW_EXTRA = 260
 
 
-def nvtx_range(name: str, device: torch.device):
-    """An NVTX range named ``name`` on a CUDA device (what a profiler's
-    timeline shows for the enclosed host step); nothing on the CPU."""
-    return torch.cuda.nvtx.range(name) if device.type == "cuda" else nullcontext()
-
-
 _STAGE_MS_LOCK = threading.Lock()   # device threads share one stage_ms
+# The stages whose interval on the card EncodeStats.device_ms keeps.
+_TIMED = frozenset({"bwt", "plan"})
 
 
 @contextmanager
 def stage(stage_ms: dict | None, name: str, device: torch.device):
-    """Open an NVTX range for the enclosed stage, and add its wall time to
-    ``stage_ms[name]`` (ms), synchronising the device before and after.
-    With ``stage_ms`` None nothing is timed and nothing waits."""
-    with nvtx_range(name, device):
-        if stage_ms is None:
-            yield
-            return
-        if device.type == "cuda":
+    """One device stage: a span named ``name`` (``spans.span``) and, for
+    a stage in ``_TIMED``, a mark on the current stream at its start and
+    one named ``name`` at its end (``spans.mark``).  When ``stage_ms`` is
+    a dict, also add the stage's wall time (ms) to ``stage_ms[name]``,
+    synchronising the device before and after, with the start mark after
+    the first synchronisation, so that its interval on the card's clock
+    is the one the host clock times; with ``stage_ms`` None nothing
+    waits."""
+    timed = name in _TIMED
+    wait = stage_ms is not None and device.type == "cuda"
+    with span(name):
+        if wait:
             torch.cuda.synchronize(device)
+        if timed:
+            mark(None)
         t0 = time.perf_counter()
         yield
-        if device.type == "cuda":
+        if timed:
+            mark(name)
+        if stage_ms is None:
+            return
+        if wait:
             torch.cuda.synchronize(device)
         dt = 1e3 * (time.perf_counter() - t0)
         with _STAGE_MS_LOCK:

@@ -20,6 +20,7 @@ from ..constants import (
     CODEWORD_MAX_LEN, MAX_SYMS as S, MAX_TABLES as T, SEGMENT_WIDTH,
 )
 
+from ..spans import span
 from ._scan import row_cumsum
 from .stream_kernels import pack_words_plain
 
@@ -121,7 +122,8 @@ def block_payload_entries(
 
     # Header: num_tables (3 bits), num_selectors (15 bits).
     h_vals = torch.stack([num_tables.to(i64), nseg_used.to(i64)], dim=1)
-    h_lens = torch.tensor([3, 15], dtype=i64, device=dev).expand(B, 2)
+    with span("sync"):          # a copy from pageable memory waits for the stream
+        h_lens = torch.tensor([3, 15], dtype=i64, device=dev).expand(B, 2)
 
     # Selectors: unary MTF codes.
     seg_pos = torch.arange(nseg, device=dev)

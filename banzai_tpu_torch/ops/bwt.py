@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import read_int, span
 from ._scan import row_cumsum
 
 _RANK_BITS = 21
@@ -56,10 +57,13 @@ def bwt_rotations(
     rank = torch.where(valid, block.to(torch.int64), _PAD)
     # Groups before the first round: distinct byte values per block.
     seen = torch.zeros(B * 256 + 1, dtype=torch.int64, device=dev)
-    seen[torch.where(valid, rows * 256 + rank, B * 256)] = 1
-    ngroups = int(seen[: B * 256].sum())
-    total = int(n64.sum())
-    max_n = int(n64.max())
+    # Both wait for the device: the scalar's copy from pageable memory and
+    # the host reads.
+    with span("sync"):
+        seen[torch.where(valid, rows * 256 + rank, B * 256)] = 1
+        ngroups = int(seen[: B * 256].sum())
+        total = int(n64.sum())
+        max_n = int(n64.max())
 
     k = 1
     while True:
@@ -74,7 +78,7 @@ def bwt_rotations(
         rank = torch.empty_like(rank).scatter_(1, order, group)
         rank = torch.where(valid, rank, _PAD)
         # Sorted slots below n hold the real rotations.
-        new_groups = int((is_head & valid).sum())
+        new_groups = read_int((is_head & valid).sum())
         k *= 2
         if new_groups in (ngroups, total) or k >= max_n:
             break

@@ -17,6 +17,7 @@ from ..constants import (
     CODEWORD_MAX_LEN, MAX_SYMS as S, MAX_TABLES as T, SEGMENT_WIDTH,
 )
 
+from ..spans import span
 from .banzai_plan import banzai_split
 
 NT_CANDIDATES = (2, 3, 4, 5, 6)
@@ -210,8 +211,9 @@ def plan_entropy(
     freqs = hist.sum(dim=1).to(torch.int64)                  # exact: < 2^24
     nseg_used = (out_len + SEGMENT_WIDTH - 1) // SEGMENT_WIDTH
 
-    col_cand = torch.as_tensor(_COL_CAND, device=dev)
-    col_table = torch.as_tensor(_COL_TABLE, device=dev)
+    with span("sync"):          # copies from pageable memory wait for the stream
+        col_cand = torch.as_tensor(_COL_CAND, device=dev)
+        col_table = torch.as_tensor(_COL_TABLE, device=dev)
     NC = len(NT_CANDIDATES)
     tables = initial_tables(freqs, ns).to(torch.float32)     # [B, K, S]
     for it in range(4):
@@ -270,7 +272,8 @@ def plan_entropy(
     # Pick the winner (first of equal totals).
     all_bits = torch.cat([bits_single[:, None], bits_multi], dim=1)
     win = torch.argmin(all_bits, dim=1)                      # [B]
-    all_nt = torch.tensor([2, *NT_CANDIDATES], device=dev)
+    with span("sync"):
+        all_nt = torch.tensor([2, *NT_CANDIDATES], device=dev)
     cand_tables = torch.stack([
         torch.cat([
             tables_i[:, _COL_LO[c] : _COL_LO[c + 1]],

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch
+from ..spans import read_int
 
 S = 256
 
@@ -27,7 +28,7 @@ def _check(syms: torch.Tensor, state0: torch.Tensor) -> None:
 
 
 def _raise_on_error_bits(err: torch.Tensor) -> None:
-    bad = int(err.max()) if err.numel() else 0
+    bad = read_int(err.max()) if err.numel() else 0
     if bad:
         raise AssertionError(
             f"MTF kernel invariant violated (error bits {bad:#x}): "

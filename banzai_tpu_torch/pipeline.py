@@ -42,9 +42,9 @@ import itertools
 import os
 import queue
 import threading
-import time
 import warnings
-from contextlib import ExitStack, contextmanager
+import weakref
+from contextlib import ExitStack
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -57,9 +57,10 @@ from .crc32 import combine_stream_crc
 from .encoder_host import TINY_BLOCK, block_plan, hybrid_block
 from .huffman_host import banzai_wins, write_entropy
 from .rle1 import iter_blocks
-from .block import ROW_EXTRA, encode_batch_rows, nvtx_range, stage
+from .block import ROW_EXTRA, encode_batch_rows, stage
 from .parallel.dp import Devices, block_devices
 from .payload import BlockPayload
+from .spans import Binding, Recorder, Span, Timeline, flush, span
 
 _CHUNK = 64           # row padding multiple (the JAX pipeline's MTF chunk)
 _DEFAULT_BATCH = 8    # blocks per device batch at level >= 5
@@ -73,18 +74,49 @@ _K_SEED: dict = {}    # (level, N) -> the last call's word-bucket window
 
 @dataclass
 class EncodeStats:
-    """What a ``compress`` call did, for callers that want to know.
+    """What ``compress`` calls did, for callers that want to know; one
+    object may gather several calls.
 
-    ``device_blocks`` counts blocks encoded on the device path; the
-    ``host_*`` fields count blocks that went to the host encoder, by rule
-    (``host_hybrid``: stolen by a hybrid worker).  ``batches`` counts the
-    device batches, and ``device_batches`` those of each device thread, in
-    the order of ``parallel.dp.block_devices``.  ``refetches`` counts
-    word fetches repeated at a wider bucket.  ``host_ms`` sums the wall
-    time (ms) of each host step on its own thread, without waiting for
-    the device.  When ``stage_ms`` is a dict, every device stage
-    synchronises the device and adds its wall time (ms) there; when it is
-    None (the default) nothing waits."""
+    Blocks by route: ``device_blocks`` counts blocks encoded on the device
+    path; ``host_tiny``, ``host_capacity``, ``host_banzai`` and
+    ``host_hybrid`` count blocks that went to the host encoder, by rule
+    (a tiny last block, a payload past the word capacity, banzai's exact
+    plan strictly smaller, stolen by a hybrid worker).
+
+    Batches: ``batches`` counts the device batches the drain checked, and
+    ``device_batches`` those of each device thread, in the order of
+    ``parallel.dp.block_devices``.  ``refetches`` counts word fetches
+    repeated at a wider bucket.
+
+    Times, all in ms and summed over the calls, none of which waits for
+    the device (``spans``); they are taken only in calls given these
+    stats, not in the stats a call makes for itself:
+
+    * ``host_ms[name]``: the wall time of each host span on its thread.
+      Producer: ``rle1_iter``, ``host_tiny``, ``hardness_sort``,
+      ``stage``, ``producer_wait_staged``.  Device thread:
+      ``device_wait_staged``, ``upload``, ``dispatch`` (holding the
+      stages ``bwt``, ``mtf``, ``rle2``, ``plan``, ``entries``, ``pack``),
+      ``fetch``, ``device_wait_fetched``, and ``sync``, the host's waits
+      for the device at its reads of device values.  Drain:
+      ``drain_wait_fetched``, ``drain_fetch`` (the wait for a batch's
+      copy), ``drain``.  Caller: ``caller_wait``, for its next payload.
+      Spans nest (``sync`` lies inside ``bwt``, inside ``dispatch``), so
+      the names do not add up to a thread's time.
+    * ``cpu_ms["dispatch"]``: the device thread's CPU time in
+      ``dispatch``; ``host_ms - cpu_ms`` is the time it was off the CPU.
+      No other span reads the CPU clock, a system call on some hosts.
+    * ``device_ms[name]``: on CUDA, the card's time between timing events
+      on the compute stream: ``bwt`` and ``plan`` (each from an event at
+      the stage's start to one at its end), ``gap`` (from the end of the
+      stream's previous batch, when these stats recorded it, to the start
+      of the next, its upload) and ``gap_starved`` (of each gap, no more
+      than the device thread's wait for a staged batch before it).  With
+      ``stage_ms`` a dict, a stage's start event follows its first
+      synchronisation, as its ``stage_ms`` does.  Empty on the CPU.
+    * ``stage_ms``: when a dict, every device stage synchronises the
+      device before and after and adds its wall time there; when None
+      (the default) nothing waits."""
     device_blocks: int = 0
     host_tiny: int = 0
     host_capacity: int = 0
@@ -95,6 +127,8 @@ class EncodeStats:
     refetches: int = 0
     stage_ms: dict | None = None
     host_ms: dict = field(default_factory=dict)
+    cpu_ms: dict = field(default_factory=dict)
+    device_ms: dict = field(default_factory=dict)
 
 
 def _batch_for_level(level: int) -> int:
@@ -230,6 +264,11 @@ def _hybrid_pool(jobs: int):
 
 _STREAMS: dict = {}   # device index -> (compute, refetch) streams
 _STREAMS_LOCK = threading.Lock()
+# device index -> (the end event of the last batch on its compute stream,
+# a weak reference to the EncodeStats it was recorded for); under
+# _STREAMS_LOCK.
+_LAST_END: dict = {}
+_FREE_EVENTS: dict = {}   # device index -> timing events to reuse
 
 
 def _streams(dev: torch.device):
@@ -244,11 +283,11 @@ def _streams(dev: torch.device):
         return _STREAMS[dev.index]
 
 
-
 class _Scheduler:
     """The threads of one ``compress_blocks_iter`` call and their state."""
 
-    def __init__(self, blocks, level, devs, batch, hybrid_jobs, stats):
+    def __init__(self, blocks, level, devs, batch, hybrid_jobs, stats,
+                 record):
         self.blocks = blocks
         self.devs = devs
         self.batch = batch
@@ -278,7 +317,11 @@ class _Scheduler:
         # of the last 3 batches, seeded from the last call at this shape.
         self.k_lock = threading.Lock()
         self.k_recent = list(_K_SEED.get(self.seed_key, (256, 256, 256)))
-        self.ms_lock = threading.Lock()
+        # Spans and marks go to the stats only when the caller gave them.
+        self.record = record
+        self.rec = Recorder(stats if record else None)
+        self.caller = Binding(self.rec)         # the caller's thread's
+        self.nstaged = 0                        # batches staged so far
         bodies = [("producer", self._producer, ())]
         bodies += [(f"device{i}", self._device, (i,))
                    for i in range(len(devs))]
@@ -301,6 +344,8 @@ class _Scheduler:
                 self.errors.append(e)
                 self.avail.notify_all()
             self.stop.set()
+        finally:
+            flush()                     # the thread's last span sums
 
     def _put(self, q: queue.Queue, item) -> bool:
         while not self.stop.is_set():
@@ -324,20 +369,6 @@ class _Scheduler:
             self.results[seq] = (payload, route)
             self.avail.notify_all()
 
-    @contextmanager
-    def _step(self, name: str):
-        """A host step: an NVTX range on CUDA, and its wall time (ms) added
-        to ``stats.host_ms[name]``."""
-        t0 = time.perf_counter()
-        try:
-            with nvtx_range(name, self.devs[0]):
-                yield
-        finally:
-            dt = 1e3 * (time.perf_counter() - t0)
-            with self.ms_lock:
-                ms = self.stats.host_ms
-                ms[name] = ms.get(name, 0.0) + dt
-
     def _k_now(self) -> int:
         with self.k_lock:
             return min(max(max(self.k_recent), 256), self.nwords)
@@ -349,7 +380,7 @@ class _Scheduler:
         encoded here and idle hybrid workers take blocks in between."""
         it = iter(self.blocks)
         while not self.stop.is_set():
-            with self._step("rle1_iter"):
+            with span("rle1_iter"):
                 blk = next(it, None)
             if blk is None:
                 return
@@ -359,7 +390,7 @@ class _Scheduler:
             if len(blk.output) <= TINY_BLOCK:
                 # Only a stream's final block can be this small; padding it
                 # to the full device shape would waste a batch slot.
-                with self._step("host_tiny"):
+                with span("host_tiny"):
                     self._file(seq, _host_payload(blk), "host_tiny")
                 continue
             if self.pool is not None:
@@ -375,12 +406,19 @@ class _Scheduler:
             yield seq, blk
 
     def _stage(self, group) -> bool:
-        with self._step("stage"):
+        idx = self.nstaged
+        self.nstaged += 1
+        self.rec.bind(idx)
+        with span("stage"):
             rows, pres = stage_rows([b.output for _s, b in group], self.N,
                                     self.batch, pin_memory=self.cuda)
-        return self._put(self.staged, (group, rows, pres))
+        with span("producer_wait_staged"):
+            ok = self._put(self.staged, (idx, group, rows, pres))
+        self.rec.bind()
+        return ok
 
     def _producer(self) -> None:
+        self.rec.bind()
         tagged = self._tagged()
         batch = self.batch
         # The first dispatch is a quarter batch, so the device starts
@@ -398,7 +436,7 @@ class _Scheduler:
                     # Similar-hardness blocks share batches, so a periodic
                     # straggler does not hold up a batch of easy blocks
                     # (the sort is stable: equal scores keep input order).
-                    with self._step("hardness_sort"):
+                    with span("hardness_sort"):
                         window.sort(key=lambda sb: _hardness(sb[1].output))
                 if not all(self._stage(window[g : g + batch])
                            for g in range(0, len(window), batch)):
@@ -409,8 +447,9 @@ class _Scheduler:
             self.total = self.nseq
             self.avail.notify_all()
         for _ in self.devs:             # one end marker per device thread
-            if not self._put(self.staged, None):
-                return
+            with span("producer_wait_staged"):
+                if not self._put(self.staged, None):
+                    return
 
     # -- device ------------------------------------------------------------
 
@@ -422,22 +461,44 @@ class _Scheduler:
                 ctx.enter_context(torch.cuda.device(dev))
                 ctx.enter_context(torch.cuda.stream(_streams(dev)[0]))
             while True:
-                item = self._get(self.staged)
+                self.rec.bind()
+                with span("device_wait_staged") as wait:
+                    item = self._get(self.staged)
                 if item is None:
                     break
-                if not self._put(self.fetched, self._run_batch(dev, *item)):
-                    return
+                b, group, rows_h, pres = item
+                tl = prev = None
+                if self.cuda:
+                    tl = Timeline(_streams(dev)[0],
+                                  _FREE_EVENTS.setdefault(dev.index, []))
+                    if self.record:
+                        prev = self._batch_start(dev, tl)
+                self.rec.bind(b, tl if self.record else None)
+                work = self._run_batch(dev, group, rows_h, pres)
+                if tl is not None:
+                    tl.mark(None)       # the batch's end: after the fetch
+                    if self.record:
+                        with _STREAMS_LOCK:
+                            _LAST_END[dev.index] = (tl.end,
+                                                    weakref.ref(self.stats))
+                waited = wait.ms if self.record else 0.0
+                with span("device_wait_fetched"):
+                    if not self._put(self.fetched,
+                                     (*work, b, tl, prev, waited)):
+                        return
                 self.stats.device_batches[i] += 1
-        self._put(self.fetched, None)
+        with span("device_wait_fetched"):
+            self._put(self.fetched, None)
 
     def _run_batch(self, dev, group, rows_h, pres):
         """Upload, encode and start the fetch of one batch (on ``dev``'s
-        compute stream); returns the drain's work item."""
+        compute stream), under the spans and marks bound to this thread;
+        returns the head of the drain's work item."""
         B = len(group)
         sm = self.stats.stage_ms
         with stage(sm, "upload", dev):
             rows = rows_h.to(dev, non_blocking=True)
-        with self._step("dispatch"):
+        with span("dispatch", cpu=True):
             words_d, nbits_d, ptrs_d, planb_d, splits_d, mlens_d = (
                 encode_batch_rows(rows, nseg=self.nseg, nwords=self.nwords,
                                   stage_ms=sm)
@@ -455,20 +516,32 @@ class _Scheduler:
                 host = torch.empty(packed.shape, dtype=torch.int32,
                                    pin_memory=True)
                 host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
             else:
-                host, done = packed, None
+                host = packed
         # words_d stays referenced until the drain is done with the batch,
         # for a refetch on a bucket miss.
-        return dev, group, pres, host, done, words_d, k
+        return dev, group, pres, host, words_d, k
+
+    def _batch_start(self, dev, tl: Timeline):
+        """Mark the start of the next batch on ``dev``'s compute stream on
+        ``tl``; return the end event of the stream's previous batch if
+        this call's stats recorded it, else None."""
+        with _STREAMS_LOCK:
+            # Popped: a batch that starts before this one ends finds none.
+            prev = _LAST_END.pop(dev.index, None)
+            tl.mark("start")
+        if prev is None or prev[1]() is not self.stats:
+            return None
+        return prev[0]
 
     # -- drain -------------------------------------------------------------
 
     def _drain(self) -> None:
         live = len(self.devs)           # device threads not yet finished
         while live:
-            item = self._get(self.fetched)
+            self.rec.bind()
+            with span("drain_wait_fetched"):
+                item = self._get(self.fetched)
             if item is None:
                 if self.stop.is_set():
                     return
@@ -476,13 +549,18 @@ class _Scheduler:
                 continue
             self._drain_one(*item)
 
-    def _drain_one(self, dev, group, pres, host, done, words_d, k) -> None:
+    def _drain_one(self, dev, group, pres, host, words_d, k, b, tl, prev,
+                   waited_ms) -> None:
         B = len(group)
         nwords = self.nwords
-        with self._step("drain_fetch"):
-            if done is not None:
-                done.synchronize()
-        with self._step("drain"):
+        self.rec.bind(b)
+        if tl is not None:
+            with span("drain_fetch"):
+                tl.end.synchronize()    # the fetch's mark ends the batch
+            if self.record:
+                self._device_times(tl, prev, waited_ms)
+            tl.recycle(self.record, prev)
+        with span("drain"):
             flat = host.numpy()
             nbits = flat[:B].astype(np.int64)
             ptrs = flat[B : 2 * B]
@@ -519,6 +597,21 @@ class _Scheduler:
                         words=words[i], nbits=int(nbits[i]),
                     ), "device_blocks")
 
+    def _device_times(self, tl: Timeline, prev, waited_ms) -> None:
+        """Add a completed batch's stage times and the gap before it, on
+        the card's clock, to ``stats.device_ms``."""
+        ms = tl.stage_ms()
+        if prev is not None:
+            # The batch's first mark follows the end of the device
+            # thread's wait for it, so both intervals end together.
+            gap = prev.elapsed_time(tl.start)
+            ms["gap"] = gap
+            ms["gap_starved"] = min(gap, waited_ms)
+        with self.rec.lock:
+            dm = self.stats.device_ms
+            for name, v in ms.items():
+                dm[name] = dm.get(name, 0.0) + v
+
     def _refetch(self, dev, words: torch.Tensor) -> np.ndarray:
         if not self.cuda:
             return words.numpy().view(np.uint32).copy()
@@ -553,7 +646,7 @@ class _Scheduler:
         stats = self.stats
         try:
             while True:
-                with self.avail:
+                with Span(self.caller, "caller_wait"), self.avail:
                     while True:
                         if seq in self.results:
                             payload, route = self.results.pop(seq)
@@ -566,12 +659,14 @@ class _Scheduler:
                         if self.total is not None and seq >= self.total:
                             return
                         self.avail.wait(_POLL)
+                self.caller.flush()
                 if payload is None:
                     payload = self._resolve_hybrid(seq)
                 setattr(stats, route, getattr(stats, route) + 1)
                 yield self.blk_map.pop(seq), payload
                 seq += 1
         finally:
+            self.caller.flush()
             self.stop.set()
             for t in self.threads:
                 if t.is_alive():
@@ -611,7 +706,8 @@ def compress_blocks_iter(
     if hybrid_jobs is None:
         hybrid_jobs = int(os.environ.get("BANZAI_HYBRID_JOBS", "0"))
     sched = _Scheduler(block_iter, level, devs, batch, hybrid_jobs,
-                       stats if stats is not None else EncodeStats())
+                       stats if stats is not None else EncodeStats(),
+                       record=stats is not None)
     return sched.run()
 
 

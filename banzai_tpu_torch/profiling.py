@@ -1,4 +1,4 @@
-"""Per-block statistics and stage timers.
+"""Per-block statistics and the per-block encode report.
 
 Copy of ``banzai_tpu/profiling.py``, so the port imports nothing of the
 JAX package; the report's text is the original's.  ``encode_report``'s
@@ -9,7 +9,6 @@ pipeline on ``device``.
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 
@@ -103,13 +102,3 @@ def encode_report(
     report.stage_seconds["encode"] = time.perf_counter() - t0
     return report
 
-
-@contextmanager
-def stage_timer(report: EncodeReport, name: str):
-    """Add the enclosed block's wall time (s) to
-    ``report.stage_seconds[name]``."""
-    t0 = time.perf_counter()
-    yield
-    report.stage_seconds[name] = (
-        report.stage_seconds.get(name, 0.0) + time.perf_counter() - t0
-    )

@@ -225,6 +225,42 @@ def test_repeated_compress_reuses_device_memory(cuda):
     assert torch.cuda.memory_reserved() < 2 * reserved
 
 
+def test_device_ms_marks_timed_stages_and_gaps(cuda):
+    """Two calls into one ``EncodeStats``: each batch's timed stages on
+    the card's clock, and the gaps between batches, the call's first
+    included; a call without stats marks no stage and leaves the next
+    call's first gap out."""
+    data = random.Random(9).randbytes(250_000) + b"abcde" * 30_000
+    stats = EncodeStats()
+    for _ in range(2):
+        out = banzai_tpu_torch.compress(data, 1, "cuda", stats, batch=2)
+        assert out == host_compress(data, 1, jobs=1)
+    assert stats.batches >= 4
+    dm = stats.device_ms
+    assert set(dm) == {"bwt", "plan", "gap", "gap_starved"}
+    assert all(v >= 0 for v in dm.values())
+    assert dm["gap_starved"] <= dm["gap"]
+    assert {"sync", "dispatch", "device_wait_staged"} <= set(stats.host_ms)
+    assert set(stats.cpu_ms) == {"dispatch"}
+
+    from banzai_tpu_torch import pipeline
+    free = pipeline._FREE_EVENTS[0]
+    spare = len(free)
+    last = pipeline._LAST_END[0]
+    assert banzai_tpu_torch.compress(data, 1, "cuda", batch=2) == out
+    assert pipeline._LAST_END[0] is last
+    assert len(free) >= spare           # every event came back
+    again = EncodeStats()
+    banzai_tpu_torch.compress(data, 1, "cuda", again, batch=2)
+    assert again.batches == stats.batches // 2
+    # The first batch's gap follows a call these stats did not see.
+    assert 0 < again.device_ms["bwt"]
+    gaps = EncodeStats()
+    banzai_tpu_torch.compress(data, 1, "cuda", gaps, batch=2)
+    banzai_tpu_torch.compress(data, 1, "cuda", gaps, batch=2)
+    assert gaps.device_ms["gap"] > again.device_ms["gap"] >= 0
+
+
 MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words")
 
 

@@ -295,12 +295,3 @@ def test_encode_report_equals_jax():
     assert got.summary().splitlines()[0] == want.summary().splitlines()[0]
     with pytest.raises(ValueError, match="backend"):
         profiling.encode_report(data, 1, backend="jax")
-
-
-def test_stage_timer_adds_up():
-    report = profiling.EncodeReport(level=1)
-    for _ in range(2):
-        with profiling.stage_timer(report, "step"):
-            pass
-    assert list(report.stage_seconds) == ["step"]
-    assert report.stage_seconds["step"] >= 0
