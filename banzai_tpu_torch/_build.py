@@ -10,7 +10,8 @@ Every kernel wrapper counts its launches in ``LAUNCHES``: one per call of
 an entry point, keyed by the entry's name, so a run can show that its main
 path went through the kernels.  An entry may run more than one
 ``__global__`` kernel (``rle2_expand``, ``pack_words`` and
-``compact_stream`` run three each) and still counts one.
+``compact_stream`` run three each, ``entropy_plan`` thirteen) and still
+counts one.  ``thread_launches`` gives the calling thread's own counts.
 """
 
 from __future__ import annotations
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "pack_words": [_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _P],
     # mask, payload, counts, offs, out, n_tiles, tile, stream
     "compact_stream": [_P, _P, _P, _P, _P, _I64, _I32, _P],
+    # syms, out_len, num_syms, num_tables, tables, selectors, sel_mtf_idx,
+    # total_bits, nseg_used, banzai_split, scratch, scratch_bytes, B, M,
+    # nseg, stream
+    "entropy_plan": [_P] * 11 + [_I64, _I32, _I32, _I32, _P],
 }
 
 
@@ -144,9 +149,20 @@ def launch(name: str, *args) -> None:
 
 
 _LAUNCHES_LOCK = threading.Lock()   # several device threads launch at once
+_THREAD = threading.local()         # .launches: the thread's own Counter
 
 
 def count_launch(name: str) -> None:
-    """Add one to ``LAUNCHES[name]``."""
+    """Add one to ``LAUNCHES[name]`` and to the calling thread's count."""
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+    mine = getattr(_THREAD, "launches", None)
+    if mine is None:
+        mine = _THREAD.launches = collections.Counter()
+    mine[name] += 1
+
+
+def thread_launches(name: str) -> int:
+    """Calls of entry point ``name`` made so far by the calling thread."""
+    mine = getattr(_THREAD, "launches", None)
+    return mine[name] if mine is not None else 0

@@ -87,6 +87,7 @@ def encode_batch_rows(
     dev = rows.device
     blocks, ns, present = unpack_rows(rows)
     num_names = present.sum(dim=1)
+    num_syms = num_names + 2
     with stage(stage_ms, "bwt", dev):
         bwt, ptrs = bwt_rotations(blocks, ns)
     with stage(stage_ms, "mtf", dev):
@@ -94,10 +95,10 @@ def encode_batch_rows(
     with stage(stage_ms, "rle2", dev):
         syms, out_len = rle2_expand_batch(idx, ns, num_names)
     with stage(stage_ms, "plan", dev):
-        plan = plan_entropy(syms, out_len, num_names + 2, nseg)
+        plan = plan_entropy(syms, out_len, num_syms, nseg)
     with stage(stage_ms, "entries", dev):
         vals, lens = block_payload_entries(
-            syms, out_len, num_names + 2, plan["num_tables"], plan["tables"],
+            syms, out_len, num_syms, plan["num_tables"], plan["tables"],
             plan["selectors"], plan["sel_mtf_idx"], plan["nseg_used"],
         )
     with stage(stage_ms, "pack", dev):

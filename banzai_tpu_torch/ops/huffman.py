@@ -2,10 +2,12 @@
 
 Counterpart of ``banzai_tpu/ops/huffman.py`` (``segment_view`` ..
 ``plan_entropy_device``).  Every function takes a leading batch dimension
-where the JAX version was vmapped.  The float32 products below carry
-integers whose sums stay below 2^24, so they are exact only while float32
-matrix products run in full float32: ``plan_entropy`` sets and checks
-that (no TF32).
+where the JAX version was vmapped.  ``plan_entropy`` launches kernel K5
+(``plan_kernel.entropy_plan``, integer arithmetic throughout) for CUDA
+tensors and runs ``plan_entropy_plain`` for CPU tensors.  The plain
+version's float32 products carry integers whose sums stay below 2^24, so
+they are exact only while float32 matrix products run in full float32:
+``plan_entropy_plain`` sets and checks that (no TF32).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..constants import (
 
 from ..spans import span
 from .banzai_plan import banzai_split
+from .plan_kernel import entropy_plan
 
 NT_CANDIDATES = (2, 3, 4, 5, 6)
 _INF_W = 1 << 29    # > any finite package weight (sum of freqs)
@@ -200,8 +203,22 @@ def plan_entropy(
     syms int32 [B, M] RLE2 symbols, out_len [B], num_syms [B].  Returns
     the winning plan per block (num_tables [B], tables [B, T, S],
     selectors [B, nseg], sel_mtf_idx [B, nseg], total_bits [B], nseg_used
-    [B]) plus banzai's table split [B, 3, S].
-    """
+    [B]) plus banzai's table split [B, 3, S], all int64.
+
+    One CUDA entry point (kernel K5) for CUDA tensors, which raises on any
+    other device; the plain version for CPU tensors."""
+    if syms.device.type == "cpu":
+        return plan_entropy_plain(syms, out_len, num_syms, nseg)
+    return entropy_plan(syms, out_len, num_syms, nseg)
+
+
+def plan_entropy_plain(
+    syms: torch.Tensor, out_len: torch.Tensor,
+    num_syms: torch.Tensor, nseg: int,
+) -> dict:
+    """Plain version of ``plan_entropy``: the segment histogram, 4
+    refinement iterations of float32 products and package-merge sorts,
+    the selector MTF in closed form, and banzai's split."""
     exact_float32_matmul()
     dev = syms.device
     B = syms.shape[0]

@@ -57,6 +57,7 @@ from .crc32 import combine_stream_crc
 from .encoder_host import TINY_BLOCK, block_plan, hybrid_block
 from .huffman_host import banzai_wins, write_entropy
 from .rle1 import iter_blocks
+from ._build import thread_launches
 from .block import ROW_EXTRA, encode_batch_rows, stage
 from .parallel.dp import Devices, block_devices
 from .payload import BlockPayload
@@ -82,6 +83,9 @@ class EncodeStats:
     ``host_hybrid`` count blocks that went to the host encoder, by rule
     (a tiny last block, a payload past the word capacity, banzai's exact
     plan strictly smaller, stolen by a hybrid worker).
+    ``plan_kernel_blocks`` counts the device blocks whose entropy plan
+    kernel K5 computed (``ops.plan_kernel``): the batch's device thread
+    launched its entry point.
 
     Batches: ``batches`` counts the device batches the drain checked, and
     ``device_batches`` those of each device thread, in the order of
@@ -118,6 +122,7 @@ class EncodeStats:
       device before and after and adds its wall time there; when None
       (the default) nothing waits."""
     device_blocks: int = 0
+    plan_kernel_blocks: int = 0
     host_tiny: int = 0
     host_capacity: int = 0
     host_banzai: int = 0
@@ -364,9 +369,11 @@ class _Scheduler:
                 continue
         return None
 
-    def _file(self, seq: int, payload: BlockPayload, route: str) -> None:
+    def _file(self, seq: int, payload: BlockPayload, *routes: str) -> None:
+        """Hand a block's payload to the caller; each of ``routes`` names a
+        count of ``EncodeStats`` that the block adds one to."""
         with self.avail:
-            self.results[seq] = (payload, route)
+            self.results[seq] = (payload, routes)
             self.avail.notify_all()
 
     def _k_now(self) -> int:
@@ -498,11 +505,13 @@ class _Scheduler:
         sm = self.stats.stage_ms
         with stage(sm, "upload", dev):
             rows = rows_h.to(dev, non_blocking=True)
+        planned = thread_launches("entropy_plan")
         with span("dispatch", cpu=True):
             words_d, nbits_d, ptrs_d, planb_d, splits_d, mlens_d = (
                 encode_batch_rows(rows, nseg=self.nseg, nwords=self.nwords,
                                   stage_ms=sm)
             )
+        planned = thread_launches("entropy_plan") > planned
         k = self._k_now()
         with stage(sm, "fetch", dev):
             # One fetch: nbits, ptr, plan bits, RLE2 length, banzai split,
@@ -520,7 +529,7 @@ class _Scheduler:
                 host = packed
         # words_d stays referenced until the drain is done with the batch,
         # for a refetch on a bucket miss.
-        return dev, group, pres, host, words_d, k
+        return dev, group, pres, host, words_d, k, planned
 
     def _batch_start(self, dev, tl: Timeline):
         """Mark the start of the next batch on ``dev``'s compute stream on
@@ -549,8 +558,8 @@ class _Scheduler:
                 continue
             self._drain_one(*item)
 
-    def _drain_one(self, dev, group, pres, host, words_d, k, b, tl, prev,
-                   waited_ms) -> None:
+    def _drain_one(self, dev, group, pres, host, words_d, k, planned, b, tl,
+                   prev, waited_ms) -> None:
         B = len(group)
         nwords = self.nwords
         self.rec.bind(b)
@@ -580,6 +589,8 @@ class _Scheduler:
                 self.stats.refetches += 1
                 words = self._refetch(dev, words_d[:B, :want])
             self.stats.batches += 1
+            device = ("device_blocks",) + (
+                ("plan_kernel_blocks",) if planned else ())
             for i, (seq, blk) in enumerate(group):
                 if int(nbits[i]) > nwords * 32:
                     # Past the word capacity (see _nwords): the device
@@ -595,7 +606,7 @@ class _Scheduler:
                     self._file(seq, BlockPayload(
                         crc=blk.crc, ptr=int(ptrs[i]), present=pres[i],
                         words=words[i], nbits=int(nbits[i]),
-                    ), "device_blocks")
+                    ), *device)
 
     def _device_times(self, tl: Timeline, prev, waited_ms) -> None:
         """Add a completed batch's stage times and the gap before it, on
@@ -649,10 +660,10 @@ class _Scheduler:
                 with Span(self.caller, "caller_wait"), self.avail:
                     while True:
                         if seq in self.results:
-                            payload, route = self.results.pop(seq)
+                            payload, routes = self.results.pop(seq)
                             break
                         if seq in self.host_jobs:
-                            payload, route = None, "host_hybrid"
+                            payload, routes = None, ("host_hybrid",)
                             break
                         if self.errors:
                             raise self.errors[0]
@@ -662,7 +673,8 @@ class _Scheduler:
                 self.caller.flush()
                 if payload is None:
                     payload = self._resolve_hybrid(seq)
-                setattr(stats, route, getattr(stats, route) + 1)
+                for route in routes:
+                    setattr(stats, route, getattr(stats, route) + 1)
                 yield self.blk_map.pop(seq), payload
                 seq += 1
         finally:

@@ -8,21 +8,27 @@ Phases, one line each or more:
    when there is no CUDA device;
 2. build: compiles the CUDA kernels from ``banzai_tpu_torch/csrc``, one
    nvcc per source, all started together;
-3. kernels: runs K1-K3 at the level-9, batch-8 shapes of the main path,
-   on inputs the real pipeline makes from real blocks, checks each
+3. kernels: runs K1-K3 and K5 at the level-9, batch-8 shapes of the main
+   path, on inputs the real pipeline makes from real blocks, checks each
    bitwise against its plain PyTorch version on the card, and times both
    (CUDA events, median, in turns); K1 runs at the main path's chunk
    (``ops.mtf.CHUNK``) and again at chunk 64, the JAX pipeline's.  K2 and
    K3 are the whole functions of their TPU kernels: MTF indices to RLE2
    symbols (``rle2_expand_batch``) and payload entries to words
-   (``pack_words_batch``).  K4 (stream compaction, on no path of the
-   encoder) runs on the batch's flattened MTF indices and on three random
-   masks at the same length, bitwise against its plain version.  Beside
+   (``pack_words_batch``).  K5 is the whole entropy plan
+   (``huffman.plan_entropy``, one entry point of 13 kernels), equal to
+   ``plan_entropy_plain`` on every field of its dict, at the batch of 8
+   and again at the quarter batch of 2 and at level 1's batch of 64
+   (NSEG 2,001), each with its plain version's kernel count and the
+   profiler's split of its device time by kernel.  K4 (stream
+   compaction, on no path of the encoder) runs on the batch's flattened
+   MTF indices and on three random masks at the same length, bitwise
+   against its plain version.  Beside
    each kernel: its device time and kernel count per call
    (torch.profiler), its bound (bytes moved once at 3.35 TB/s, or its
    operations at 67 T/s, whichever is larger), its share of that bound,
    and the time of the nearest single PyTorch call (``library_ms``; none
-   for K1), which the port never calls (for K2 ``repeat_interleave`` of
+   for K1 and K5), which the port never calls (for K2 ``repeat_interleave`` of
    the entries, the expansion half; for K3 ``index_add_`` of the word
    fields, the assembly half).  Then, at both dispatch shapes (batches of
    8 and 2), the profiler's kernel time and count of one ``mtf_indices``
@@ -32,9 +38,9 @@ Phases, one line each or more:
    the overlapped block scheduler on about 8.6 MB built from the seed and
    the JAX package's source (read as bytes, never imported); the stream
    must equal the port's host encoder's byte for byte, decode with the
-   standard library's bz2, and K1-K3 must have launched.  Then 7 timed
-   runs, the peak device memory, one run under ``torch.profiler`` (device
-   idle share) and one synchronised run (stage times);
+   standard library's bz2, and K1-K3 and K5 must have launched.  Then 7
+   timed runs, the peak device memory, one run under ``torch.profiler``
+   (device idle share) and one synchronised run (stage times);
 5. encode: ``banzai_tpu_torch.encode`` on the same input in 3,000,000-byte
    spans (spans end inside blocks); same bytes as ``compress``;
 6. CLI: ``python -m banzai_tpu_torch.cli -c -9 --device cuda <file>`` in
@@ -52,7 +58,7 @@ Phases, one line each or more:
    group on 127.0.0.1, rank r on ``cuda:{r % device count}`` (here both
    share the one card), through ``encode_multihost_path`` on the same
    input; rank 0's stream must equal ``compress``'s and decode with bz2,
-   and each rank must have launched K1-K3.  Printed: the wall, each
+   and each rank must have launched K1-K3 and K5.  Printed: the wall, each
    rank's start-up (spawn to group joined) split into the interpreter,
    the torch import, the card's context and kernel library, and the
    group's rendezvous, its encode, and the report;
@@ -69,14 +75,14 @@ Phases, one line each or more:
 
 Every path of phases 4-8 runs with the launch counts set to 0 just
 before it and read just after (each rank counts in its own process),
-and fails unless K1-K3 launched.  A launch is one call of a kernel's
-entry point (K4's runs three kernels).  Each kernel's ``launches`` are
-those of the compress run of phase 4, and ``launches_by_path`` those of
-each path of phases 4, 8 and 9 (phase 9 launches none: its work is
-``torch.sort``, scans and copies); K4's ``launches`` are those of its own
-phase, its ``main_path_launches`` those of phase 4.  The line before the
-last is the kernels' JSON; the last line is the result JSON.  Any
-failure raises and exits non-zero.
+and fails unless K1-K3 and K5 (the entropy plan) launched.  A launch is
+one call of a kernel's entry point (K4's runs three kernels, K5's
+thirteen).  Each kernel's ``launches`` are those of the compress run of
+phase 4, and ``launches_by_path`` those of each path of phases 4, 8 and
+9 (phase 9 launches none: its work is ``torch.sort``, scans and copies);
+K4's ``launches`` are those of its own phase, its ``main_path_launches``
+those of phase 4.  The line before the last is the kernels' JSON; the
+last line is the result JSON.  Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -102,7 +108,9 @@ from torch.utils._pytree import tree_leaves
 ROOT = Path(__file__).resolve().parent
 LEVEL = 9
 BATCH = 8
-MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words")
+MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words", "entropy_plan")
+PLAN_KEYS = ("banzai_split", "nseg_used", "num_tables", "sel_mtf_idx",
+             "selectors", "tables", "total_bits")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores
 
@@ -202,6 +210,17 @@ def compare_compact(cases, kernel, plain, reps):
     k2 = time_ms(lambda: kernel(mask, pay), reps)
     p2 = time_ms(lambda: plain(mask, pay), reps)
     return worst, min(k1, k2), min(p1, p2)
+
+
+def plan_fields(plan, args):
+    """A callable for ``compare``: ``plan(*args)``'s fields in the order
+    of ``PLAN_KEYS``, after checking that the dict has just those keys."""
+    def run():
+        d = plan(*args)
+        if tuple(sorted(d)) != PLAN_KEYS:
+            raise AssertionError(f"{plan.__name__}: keys {sorted(d)}")
+        return tuple(d[k] for k in PLAN_KEYS)
+    return run
 
 
 def bound(nbytes: int, ops: int = 0) -> tuple[float, str]:
@@ -501,7 +520,9 @@ def main() -> int:
     from banzai_tpu_torch.ops.compact_kernel import (
         compact_stream, compact_stream_plain,
     )
-    from banzai_tpu_torch.ops.huffman import plan_entropy
+    from banzai_tpu_torch.ops.huffman import (
+        plan_entropy, plan_entropy_plain,
+    )
     from banzai_tpu_torch.ops.mtf import CHUNK, mtf_indices, shuffle_inputs
     from banzai_tpu_torch.ops.mtf_kernel import mtf_shuffle, mtf_shuffle_plain
     from banzai_tpu_torch.ops.rle2 import rle2_entries
@@ -558,6 +579,25 @@ def main() -> int:
         )
         return (idx, ns, num_names), (vals, lens)
 
+    def plan_inputs(level, batch):
+        """K5's inputs (syms, out_len, num_syms, nseg) for the first
+        ``batch`` device blocks of ``data`` at ``level``, through the real
+        stages."""
+        lv_full = [b.output for b in iter_blocks(data, level)
+                   if len(b.output) > TINY_BLOCK]
+        if len(lv_full) < batch:
+            raise AssertionError(f"only {len(lv_full)} device blocks at "
+                                 f"-{level}, need {batch}")
+        lv_N = _padded_len(level)
+        lv_rows, _ = stage_rows(lv_full[:batch], lv_N, batch)
+        lv_blk, lv_ns, lv_present = unpack_rows(lv_rows.to(dev))
+        lv_names = lv_present.sum(dim=1)
+        lv_idx = mtf_indices(bwt_rotations(lv_blk, lv_ns)[0], lv_ns,
+                             lv_present)
+        lv_syms, lv_out_len = rle2_expand_batch(lv_idx, lv_ns, lv_names)
+        return (lv_syms, lv_out_len, lv_names + 2,
+                (lv_N + 1 + SEGMENT_WIDTH - 1) // SEGMENT_WIDTH)
+
     k2_in, k3_in = stream_inputs(bwt, ns, present)
     idx = k2_in[0]
     syms, out_len = rle2_expand_batch(*k2_in)
@@ -573,6 +613,9 @@ def main() -> int:
     # words and the totals.
     k2_bound = bound(nbytes(*k2_in, syms, out_len))
     k3_bound = bound(nbytes(*k3_in, words, total))
+    # K5 reads the symbols, out_len and num_syms and writes its dict.
+    k5_in = (syms, out_len, k2_in[2] + 2, nseg)
+    k5_bound = bound(nbytes(*k5_in[:3], *plan_fields(plan_entropy, k5_in)()))
     # The nearest single PyTorch calls (timed only; the port never calls
     # them), each on its half of the function's work, from the plain
     # versions' intermediates: K2 repeats each RLE2 entry's value by its
@@ -604,6 +647,10 @@ def main() -> int:
          lambda: pack_words_batch(*k3_in, nwords),
          lambda: pack_words_batch_plain(*k3_in, nwords),
          lambda: k3_acc.index_add_(0, k3_idx, k3_add), k3_bound, 5),
+        ("entropy_plan", "banzai_tpu_torch/csrc/entropy_plan.cu",
+         "none: banzai_tpu's plan is plain jnp (banzai_tpu/ops/huffman.py)",
+         plan_fields(plan_entropy, k5_in),
+         plan_fields(plan_entropy_plain, k5_in), None, k5_bound, 3),
     ]
     library_of = {"rle2_expand": "repeat_interleave of the RLE2 entries "
                                  "(the expansion half)",
@@ -646,6 +693,39 @@ def main() -> int:
     print(f"kernel mtf_shuffle at chunk 64: bitwise equal to plain; "
           f"{ms:.3f} ms (device {dev_ms:.3f} ms) vs plain {plain_ms:.3f} ms; "
           f"bound {b_ms:.4f} ms by {b_by}", flush=True)
+    # K5 at batch 8 (above), at the quarter batch and at level 1's batch
+    # of 64: the plain version's kernel count and the kernels' split.
+    k5 = next(k for k in kernels if k["name"] == "entropy_plan")
+    k5_shapes = {(LEVEL, BATCH): k5_in, (LEVEL, max(1, BATCH // 4)): None,
+                 (1, 64): None}
+    for (level, B), k5_args in k5_shapes.items():
+        k5_args = k5_args or plan_inputs(level, B)
+        kern = plan_fields(plan_entropy, k5_args)
+        plain = plan_fields(plan_entropy_plain, k5_args)
+        if k5_args is k5_in:
+            row = k5
+        else:
+            err, ms, plain_ms = compare(f"entropy_plan at -{level} batch {B}",
+                                        kern, plain, 3)
+            b_ms, b_by = bound(nbytes(*k5_args[:3], *kern()))
+            dev_ms, _, per_call = kernel_ms(kern)
+            row = {"ms": ms, "device_ms": dev_ms,
+                   "kernels_per_call": per_call, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+                   "max_abs_err": err}
+            k5.setdefault("at_shapes", {})[f"-{level} batch {B}"] = row
+        row["shape"] = {"syms": list(k5_args[0].shape), "nseg": k5_args[3]}
+        row["plain_kernels_per_call"] = kernel_ms(plain, reps=1)[2]
+        row["kernel_split_ms"] = kernel_split(kern)
+        print(f"kernel entropy_plan at -{level} batch {B} (syms "
+              f"{tuple(k5_args[0].shape)}, nseg {k5_args[3]}): bitwise equal "
+              f"to plain on {len(PLAN_KEYS)} fields; {row['ms']:.3f} ms "
+              f"(device {row['device_ms']:.3f} ms in "
+              f"{row['kernels_per_call']} kernels) vs plain "
+              f"{row['plain_ms']:.3f} ms in {row['plain_kernels_per_call']} "
+              f"kernels; bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+              f" (share {row['share']:.4f}); device ms by kernel "
+              f"{json.dumps(row['kernel_split_ms'])}", flush=True)
     shapes = (f"K1 syms {tuple(k1_syms.shape)} (chunk {K}; "
               f"{tuple(s64.shape)} at 64), K2 indices {tuple(idx.shape)} "
               f"-> symbols {tuple(syms.shape)}, K3 entries "
@@ -726,6 +806,7 @@ def main() -> int:
           f"{json.dumps(stream_fns)}", flush=True)
     del rows, blk, bwt, idx, ent, syms, out_len, k1_in, k1_out, k2_in, k3_in
     del w, hi2, words, total, k1_syms, k1_state, s64, st64, flat
+    del k5_in, k5_shapes, k5_args, kern, plain
     del k4_cases, k4_mask, k2_width, k2_val, k3_acc, k3_idx, k3_add
     del mtf_shapes, stream_shapes, q_rows, q_blk, q_ns, q_present, margs
     del s2, s3, fns, fn

@@ -20,6 +20,7 @@ from banzai_tpu_torch import _build
 from banzai_tpu_torch.ops.compact_kernel import (
     compact_stream, compact_stream_plain,
 )
+from banzai_tpu_torch.ops.huffman import plan_entropy, plan_entropy_plain
 from banzai_tpu_torch.ops.mtf_kernel import mtf_shuffle, mtf_shuffle_plain
 from banzai_tpu_torch.ops.stream_kernels import (
     PACK_TILE, RLE2_TILE, pack_words_batch, pack_words_batch_plain,
@@ -261,7 +262,7 @@ def test_device_ms_marks_timed_stages_and_gaps(cuda):
     assert gaps.device_ms["gap"] > again.device_ms["gap"] >= 0
 
 
-MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words")
+MAIN_KERNELS = ("mtf_shuffle", "rle2_expand", "pack_words", "entropy_plan")
 
 
 def test_two_device_threads_on_one_card_match_host(cuda):
@@ -316,3 +317,136 @@ def test_spbwt_two_shards_on_the_card_match_bwt(cuda):
     ref_bwt, ref_ptr = numpy_bwt(data)
     assert int(ptr) == int(want_ptr[0]) == ref_ptr
     np.testing.assert_array_equal(torch.cat(got)[:n].cpu().numpy(), ref_bwt)
+
+
+# -- K5: the entropy plan ----------------------------------------------------
+
+PLAN_KEYS = ("num_tables", "tables", "selectors", "sel_mtf_idx",
+             "total_bits", "nseg_used", "banzai_split")
+PLAN_KERNELS = ("plan_zero_kernel", "plan_hist_kernel", "plan_init_kernel",
+                "plan_assign_kernel", "plan_pm_kernel", "plan_mtf_kernel",
+                "plan_score_kernel")
+
+
+def _plan_row(rng, kind: str, M: int):
+    """(int32 [M] RLE2 symbols, out_len, num_syms) of one row."""
+    row = np.full(M, 258, np.int32)
+    if kind == "pad":                   # a padded row: one byte 0
+        row[:2] = [0, 2]
+        return row, 2, 3
+    if kind == "empty":
+        return row, 0, 3
+    if kind == "flat":                  # equal frequencies: every tie
+        n = 258 * (M // 258 // 2)
+        row[:n] = np.arange(n) % 258
+        return row, n, 258
+    ns, n = {"ns3": (3, M), "ns258": (258, M - 7), "x50": (97, 50 * (M // 100)),
+             "oneseg": (30, 37)}.get(kind, (int(rng.integers(3, 259)),
+                                            int(rng.integers(M // 2, M + 1))))
+    p = rng.dirichlet(np.full(ns - 1, 0.3))
+    row[: n - 1] = rng.choice(ns - 1, n - 1, p=p)
+    row[n - 1] = ns - 1
+    return row, n, ns
+
+
+EDGE_KINDS = ("ns3", "ns258", "flat", "empty", "x50", "oneseg", "pad")
+
+
+@pytest.mark.parametrize("B,real,nseg,mix", [
+    (1, 1, 18_001, "random"), (4, 3, 18_001, "random"),
+    (8, 8, 18_001, "random"), (8, 8, 18_001, "edge"),
+    (64, 64, 2_001, "edge"), (4, 3, 2_001, "edge"),
+])
+def test_entropy_plan_kernel_matches_plain(cuda, B, real, nseg, mix):
+    """Every field of the kernel's dict equals the plain version's,
+    bitwise, on random rows or the edge rows (then random ones); rows
+    past ``real`` are padded as the scheduler pads a batch."""
+    rng = np.random.default_rng(B * 7 + nseg)
+    M = nseg * 50 - 17                  # the last segment part-filled
+    edge = list(EDGE_KINDS) if mix == "edge" else []
+    kinds = (edge + ["random"] * real)[:real] + ["pad"] * (B - real)
+    rows = [_plan_row(rng, k, M) for k in kinds]
+    syms = torch.from_numpy(np.stack([r for r, _, _ in rows])).to(cuda)
+    out_len = torch.tensor([n for _, n, _ in rows], dtype=torch.int32,
+                           device=cuda)
+    ns = torch.tensor([k for _, _, k in rows], dtype=torch.int64, device=cuda)
+    before = _build.LAUNCHES["entropy_plan"]
+    got = plan_entropy(syms, out_len, ns, nseg)
+    assert _build.LAUNCHES["entropy_plan"] == before + 1
+    want = plan_entropy_plain(syms, out_len, ns, nseg)
+    torch.cuda.synchronize()
+    assert set(got) == set(want) == set(PLAN_KEYS)
+    for key in PLAN_KEYS:
+        g, w = got[key], want[key]
+        assert (g.shape, g.dtype, g.device) == (w.shape, w.dtype, w.device), key
+        assert torch.equal(g, w), (key, kinds)
+
+
+def test_compress_runs_every_plan_through_the_kernel(cuda):
+    rng = random.Random(13)
+    data = (rng.randbytes(120_000) + b"the quick brown fox " * 12_000
+            + bytes(60_000) + rng.randbytes(30_000))
+    _build.LAUNCHES.clear()
+    stats = EncodeStats()
+    out = banzai_tpu_torch.compress(data, 1, device="cuda", stats=stats,
+                                    batch=2)
+    assert out == host_compress(data, 1, jobs=1)
+    assert bz2.decompress(out) == data
+    assert stats.batches >= 2
+    assert _build.LAUNCHES["entropy_plan"] == stats.batches
+    assert stats.plan_kernel_blocks == stats.device_blocks >= 3
+
+
+def test_plan_stage_launches_only_its_own_kernels(cuda, tmp_path,
+                                                 monkeypatch):
+    """Under torch.profiler, over one ``encode_batch_rows``: every kernel
+    that the plan stage launches is one of ``entropy_plan.cu``'s, 13 in
+    all.  The stage's call is fenced by synchronisations and 20 ms sleeps,
+    so the card runs nothing else from 20 ms before the call's profiler
+    range to 20 ms after it."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from banzai_tpu_torch import block
+    from banzai_tpu_torch.pipeline import _nwords, stage_rows
+    from banzai_tpu_torch.rle1 import iter_blocks
+
+    rng = random.Random(14)
+    data = rng.randbytes(150_000) + b"abcabd" * 40_000
+    blocks = [b.output for b in iter_blocks(data, 1)][:3]
+    N = _padded_len(1)
+    nseg = (N + 1 + 49) // 50
+    rows = stage_rows(blocks, N, 4)[0].to(cuda)
+    plan = block.plan_entropy
+
+    def fenced(*args):
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        with record_function("plan_call"):
+            out = plan(*args)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        return out
+
+    monkeypatch.setattr(block, "plan_entropy", fenced)
+    block.encode_batch_rows(rows, nseg=nseg, nwords=_nwords(N, nseg))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        block.encode_batch_rows(rows, nseg=nseg, nwords=_nwords(N, nseg))
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    call = [e for e in events if e["name"] == "plan_call"
+            and e.get("cat") == "user_annotation"]
+    assert len(call) == 1
+    lo = call[0]["ts"] - 10_000                 # µs
+    hi = call[0]["ts"] + call[0]["dur"] + 10_000
+    inside = [e["name"] for e in events
+              if e.get("cat") == "kernel" and lo <= e["ts"] <= hi]
+    assert len(inside) == 13, inside
+    assert all(any(k in n for k in PLAN_KERNELS) for n in inside), inside
